@@ -20,7 +20,8 @@ Phases, each raising on failure:
 7. profile  the main path's shape at n=1024 under torch.profiler: device
             time by op, and the device's busy share.
 
-The line before the last is the kernels' JSON record; the last line is
+The last four lines are a JSON summary of the run's headline numbers, the
+card's name and power limit, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 """
 
@@ -42,11 +43,11 @@ import torch  # noqa: E402
 from repro_torch.api import JobSpec, Session  # noqa: E402
 from repro_torch.kernels.garble import kernel as gk, ops, ref  # noqa: E402
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the boolean-gate
-#: rate of the CUDA cores' INT32 lanes (132 SMs x 64 lanes x 1.98 GHz boost
-#: clock), 32 bitsliced gates per 32-bit logic operation
+#: H100 SXM peaks: HBM3 bandwidth (NVIDIA data sheet), and 32-bit
+#: three-input logic operations (LOP3) per second: 64 per SM per clock (CUDA
+#: C++ programming guide, compute capability 9.0) x 132 SMs x 1.98 GHz boost
 HBM_BYTES_PER_S = 3.35e12
-BIT_GATES_PER_S = 32 * 132 * 64 * 1.98e9
+LOP3_PER_S = 132 * 64 * 1.98e9
 
 KERNEL_SIZES = (1, 16, 32, 37, 64, 4096, 1 << 20)
 GIDS = (0, (1 << 31) + 5, 1 << 40)
@@ -81,6 +82,18 @@ def phase_build() -> None:
 def _labels(rng: np.random.Generator, m: int, dev) -> torch.Tensor:
     x = rng.integers(0, 1 << 64, (m, 2), dtype=np.uint64)
     return torch.from_numpy(x.view(np.int64)).to(dev)
+
+
+def _max_abs_err(outs, plains) -> int:
+    """Largest |kernel - plain| over the compared 64-bit words, each read
+    as unsigned (the labels' and tables' bit views)."""
+    err = 0
+    for k, p in zip(outs, plains):
+        a = k.cpu().numpy().view(np.uint64)
+        b = p.cpu().numpy().view(np.uint64)
+        if a.size:
+            err = max(err, int(np.max(np.where(a > b, a - b, b - a))))
+    return err
 
 
 def _device_ms(fn, reps: int) -> float:
@@ -120,11 +133,14 @@ def _kernel_ms(fn, name: str, reps: int) -> float | None:
     return tot / cnt / 1e3 if cnt and tot else None
 
 
-def phase_kernels(dev) -> None:
+def phase_kernels(dev) -> tuple[dict, dict]:
     """Kernels against their plain versions, bit for bit, then each one's
-    time at the main path's launch sizes and at 2^20 gates."""
+    time at the main path's launch sizes and at 2^20 gates.  Returns each
+    kernel's max_abs_err over the comparisons, and its ms at 2^20."""
     rng = np.random.default_rng(2024)
     checked = 0
+    errs = {"garble_and": 0, "eval_and": 0}
+    big = {}
     for m in KERNEL_SIZES:
         a, b = _labels(rng, m, dev), _labels(rng, m, dev)
         r = rng.integers(0, 1 << 64, 2, dtype=np.uint64)
@@ -132,18 +148,23 @@ def phase_kernels(dev) -> None:
         rt = torch.from_numpy(r.view(np.int64).copy()).to(dev)
         for gid0 in GIDS:
             c, tab = ops.garble_and(a, b, r, gid0)
-            c_p, tab_p = ref.garble_and(a, b, rt, gid0)
-            if not (torch.equal(c, c_p) and torch.equal(tab, tab_p)):
+            err = _max_abs_err((c, tab), ref.garble_and(a, b, rt, gid0))
+            errs["garble_and"] = max(errs["garble_and"], err)
+            if err:
                 raise AssertionError(f"garble_and != plain at m={m} "
-                                     f"gid0={gid0}")
+                                     f"gid0={gid0}: max_abs_err {err}")
             for bit_a in (0, 1):
                 for bit_b in (0, 1):
                     wa = a ^ (rt * bit_a)
                     wb = b ^ (rt * bit_b)
                     w = ops.eval_and(wa, wb, tab, gid0)
-                    if not torch.equal(w, ref.eval_and(wa, wb, tab, gid0)):
+                    err = _max_abs_err((w,), (ref.eval_and(wa, wb, tab,
+                                                           gid0),))
+                    errs["eval_and"] = max(errs["eval_and"], err)
+                    if err:
                         raise AssertionError(f"eval_and != plain at m={m} "
-                                             f"gid0={gid0}")
+                                             f"gid0={gid0}: max_abs_err "
+                                             f"{err}")
                     if not torch.equal(w, c ^ (rt * (bit_a & bit_b))):
                         raise AssertionError(
                             f"truth table row ({bit_a},{bit_b}) fails at "
@@ -163,23 +184,28 @@ def phase_kernels(dev) -> None:
         fns = {
             "garble_and": (lambda: ops.garble_and(a, b, r, 7),
                            lambda: ref.garble_and(a, b, rt, 7),
-                           "garble_and_kernel", gk.GARBLE_GATES_PER_AND,
+                           "garble_and_kernel", gk.GARBLE_LOP3_PER_AND,
                            gk.GARBLE_BYTES_PER_AND),
             "eval_and": (lambda: ops.eval_and(a, b, tab, 7),
                          lambda: ref.eval_and(a, b, tab, 7),
-                         "eval_and_kernel", gk.EVAL_GATES_PER_AND,
+                         "eval_and_kernel", gk.EVAL_LOP3_PER_AND,
                          gk.EVAL_BYTES_PER_AND),
         }
-        for name, (kfn, pfn, kname, gates, nbytes) in fns.items():
+        for name, (kfn, pfn, kname, lop3, nbytes) in fns.items():
             event_ms = _device_ms(kfn, reps)
             kernel_ms = _kernel_ms(kfn, kname, reps)
             plain_ms = _device_ms(pfn, max(reps // 50, 2))
-            bound_ms = max(m * gates / BIT_GATES_PER_S,
+            bound_ms = max(m * lop3 / LOP3_PER_S,
                            m * nbytes / HBM_BYTES_PER_S) * 1e3
+            ms = kernel_ms or event_ms
             log(f"  {name} m={m}: kernel {kernel_ms} ms (profiler), "
                 f"{event_ms:.4f} ms per call (events), bound "
-                f"{bound_ms:.3e} ms, plain {plain_ms:.4f} ms, "
-                f"{m / (kernel_ms or event_ms) * 1e3:.3e} ANDs/s")
+                f"{bound_ms:.3e} ms ({bound_ms / ms:.3g} of it), plain "
+                f"{plain_ms:.4f} ms, {m / ms * 1e3:.3e} ANDs/s")
+            if m == 1 << 20:
+                big[name] = {"ms": ms, "bound_ms": bound_ms,
+                             "plain_ms": plain_ms}
+    return errs, big
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +238,7 @@ def _swaps(s) -> tuple[int, int, int, int]:
             sum(e.io_write_bytes for e in st))
 
 
-def phase_parity(dev) -> None:
+def phase_parity(dev) -> dict:
     gpu, out_g, t_g = _run(PARITY, dev, digest=True)
     cpu, out_c, t_c = _run(PARITY, "cpu", digest=True)
     if _swaps(gpu)[0] == 0:
@@ -236,9 +262,12 @@ def phase_parity(dev) -> None:
     log(f"sync swaps: merge n={SYNC_SWAPS['n']} with SWAP_IN/SWAP_OUT only, "
         f"on the card ({t_s:.2f} s), checked against the oracle; swaps "
         f"in/out {_swaps(sync)[:2]}")
+    return {"card_s": t_g, "cpu_s": t_c, "sync_card_s": t_s}
 
 
-def phase_main(dev) -> dict:
+def phase_main(dev) -> tuple[dict, dict]:
+    """The main path; returns the kernels' counts from its run and its
+    end-to-end metrics."""
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_counts()
     s, out, seconds = _run(MAIN, dev)
@@ -251,6 +280,8 @@ def phase_main(dev) -> dict:
         raise AssertionError(f"ANDs through the kernels {counts} != gate "
                              f"counts {g_ands}, {e_ands}")
     t = s.timings
+    table_bytes = sum(v.bytes for k, v in s.transport_stats.items()
+                      if k[2] == 1)
     log(f"main: merge n={MAIN['n']} per party, budget {MAIN['memory_budget']}"
         f" of the working set ({s.config.num_frames} frames, "
         f"{s.config.prefetch_pages} prefetch), {len(out)} output chunks "
@@ -259,8 +290,7 @@ def phase_main(dev) -> dict:
         f"batch schedule {t['batch_schedule_s']:.3f}, execute "
         f"{t['execute_s']:.3f} (all {seconds:.3f})")
     log(f"  AND gates {g_ands} per party, {g_ands / t['execute_s']:.4e} "
-        f"AND gates/s end to end; table bytes "
-        f"{sum(v.bytes for k, v in s.transport_stats.items() if k[2] == 1)}")
+        f"AND gates/s end to end; table bytes {table_bytes}")
     log(f"  swaps: {ins} in / {outs} out, {rbytes} / {wbytes} bytes "
         f"(both parties)")
     log(f"  frame memory {s.engine_stats[0].frame_bytes} bytes per party, "
@@ -268,7 +298,13 @@ def phase_main(dev) -> dict:
     log(f"  launches: garble_and {counts['garble_launches']}, eval_and "
         f"{counts['eval_launches']}; sizes "
         f"{sorted(counts['launch_sizes']['garble'].items())[:8]}")
-    return counts
+    metrics = {"n": MAIN["n"], **t, "ands": g_ands,
+               "ands_per_s": g_ands / t["execute_s"],
+               "table_bytes": table_bytes, "swaps": [ins, outs],
+               "swap_bytes": [rbytes, wbytes],
+               "frame_bytes": s.engine_stats[0].frame_bytes,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    return counts, metrics
 
 
 def _dev_us(ev) -> float:
@@ -276,7 +312,7 @@ def _dev_us(ev) -> float:
         getattr(ev, "self_cuda_time_total", 0)
 
 
-def phase_profile(dev) -> None:
+def phase_profile(dev) -> dict:
     """Where the device's time goes on the main path's shape: the device
     time of every CUDA op (kernels and copies) under torch.profiler, and
     their sum against the wall time of the execute stage.  The profiler
@@ -296,17 +332,20 @@ def phase_profile(dev) -> None:
         f"{1 - busy_ms / wall_ms:.3f})")
     for e in evs[:8]:
         log(f"  {_dev_us(e) / 1e3:10.2f} ms  {e.count:8d}x  {e.key[:70]}")
+    return {"n": PROFILED["n"], "execute_ms": wall_ms, "busy_ms": busy_ms}
 
 
-def kernel_record(dev, counts: dict) -> list[dict]:
+def kernel_record(dev, counts: dict, errs: dict) -> list[dict]:
     """Time each kernel at every launch size the main path used and report
-    launch-weighted means beside the bound and the plain version."""
+    launch-weighted means beside the bound and the plain version;
+    ``errs`` holds the kernels phase's max_abs_err, which the comparisons
+    here extend."""
     rng = np.random.default_rng(7)
     rows = []
     spec = {"garble_and": ("garble", "garble_and_kernel", 151,
-                           gk.GARBLE_GATES_PER_AND, gk.GARBLE_BYTES_PER_AND),
+                           gk.GARBLE_LOP3_PER_AND, gk.GARBLE_BYTES_PER_AND),
             "eval_and": ("eval", "eval_and_kernel", 175,
-                         gk.EVAL_GATES_PER_AND, gk.EVAL_BYTES_PER_AND)}
+                         gk.EVAL_LOP3_PER_AND, gk.EVAL_BYTES_PER_AND)}
     for name, (kind, kname, line, ops_g, bytes_g) in spec.items():
         sizes = counts["launch_sizes"][kind]
         total = sum(sizes.values())
@@ -320,25 +359,28 @@ def kernel_record(dev, counts: dict) -> list[dict]:
             if kind == "garble":
                 kfn = lambda: ops.garble_and(a, b, r, 3)  # noqa: E731
                 pfn = lambda: ref.garble_and(a, b, rt, 3)  # noqa: E731
-                same = all(torch.equal(x, y) for x, y in zip(kfn(), pfn()))
+                err = _max_abs_err(kfn(), pfn())
             else:
                 kfn = lambda: ops.eval_and(a, b, tab, 3)  # noqa: E731
                 pfn = lambda: ref.eval_and(a, b, tab, 3)  # noqa: E731
-                same = torch.equal(kfn(), pfn())
-            if not same:
-                raise AssertionError(f"{name} != plain at m={m}")
+                err = _max_abs_err((kfn(),), (pfn(),))
+            errs[name] = max(errs[name], err)
+            if err:
+                raise AssertionError(f"{name} != plain at m={m}: "
+                                     f"max_abs_err {err}")
             km = _kernel_ms(kfn, kname, 200) or _device_ms(kfn, 200)
             w = k / total
             ms += w * km
             plain += w * _device_ms(pfn, 20)
-            bound_ops += w * m * ops_g / BIT_GATES_PER_S * 1e3
+            bound_ops += w * m * ops_g / LOP3_PER_S * 1e3
             bound_bytes += w * m * bytes_g / HBM_BYTES_PER_S * 1e3
         bound = max(bound_ops, bound_bytes)
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/garble/csrc/garble.cu",
             "replaces": f"src/repro/kernels/garble/kernel.py:{line}",
-            "launches": counts[f"{kind}_launches"], "max_abs_err": 0.0,
+            "launches": counts[f"{kind}_launches"],
+            "max_abs_err": float(errs[name]),
             "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": "operations" if bound_ops >= bound_bytes
             else "bytes",
@@ -365,13 +407,15 @@ def main() -> None:
 
     smi = timed("device", phase_device)
     timed("build", phase_build)
-    timed("kernels", phase_kernels, dev)
-    timed("parity", phase_parity, dev)
-    counts = timed("main", phase_main, dev)
-    rows = timed("record", kernel_record, dev, counts)
-    timed("profile", phase_profile, dev)
-    log(f"phases: {json.dumps({k: round(v, 3) for k, v in phases.items()})}"
-        f", total {time.perf_counter() - t_all:.1f} s")
+    errs, big = timed("kernels", phase_kernels, dev)
+    parity = timed("parity", phase_parity, dev)
+    counts, metrics = timed("main", phase_main, dev)
+    rows = timed("record", kernel_record, dev, counts, errs)
+    profiled = timed("profile", phase_profile, dev)
+    # the run's headline numbers, kept near the end of the output
+    log("summary: " + json.dumps({
+        "main": metrics, "m=2^20": big, "parity": parity,
+        "profile": profiled, "total_s": time.perf_counter() - t_all}))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

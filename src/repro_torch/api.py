@@ -13,7 +13,6 @@ half-gates kernels.  The device is the card unless the caller passes
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 
 import numpy as np
@@ -162,8 +161,7 @@ class Session:
         t0 = time.perf_counter()
         sched = build_batch_schedule(planned[0])
         self.timings["batch_schedule_s"] = time.perf_counter() - t0
-        # the parties take turns on the interpreter (core.transport)
-        transport = InprocTransport(2, baton=threading.Lock())
+        transport = InprocTransport(2)
         ch = PartyChannel(transport, src=0, dst=1, digest=digest)
         gd = GarblerDriver(ch, dev, w.inputs(n, 0, 1), seed=GARBLER_SEED)
         ed = EvaluatorDriver(ch, dev, w.inputs(n, 0, 1))
@@ -172,8 +170,7 @@ class Session:
                 for p, d in enumerate((gd, ed))]
         t0 = time.perf_counter()
         try:
-            self.engine_stats = run_engines(jobs, on_error=transport.close,
-                                            baton=transport.baton)
+            self.engine_stats = run_engines(jobs, transport)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         finally:

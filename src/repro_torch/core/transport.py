@@ -7,14 +7,13 @@ set (``set_depth``) so that a producer running ahead blocks instead of
 materializing the whole garbled circuit (§2.4.2), and a receive may time
 out, which turns a protocol desync into an error instead of a hang.
 
-A transport may carry a *baton*: a lock that the endpoint threads hold
-while they run and give up only while they wait on a link.  The parties
-then take turns, each running until the channel blocks it, so at most one
-of them competes for the interpreter lock.  Without it, two threads that
-both launch tensor ops (each of which releases the interpreter lock) hand
-that lock back and forth on every op, and the handoffs cost far more than
-the ops.  The TCP and shaped backends, fabrics and barriers wait for a
-later slice.
+The endpoint threads take turns: each holds the transport's *baton*, a
+lock, while it runs and gives it up only while it waits on a link, so at
+most one of them competes for the interpreter lock.  Two threads that both
+launch tensor ops (each of which releases the interpreter lock) would
+otherwise hand that lock back and forth on every op, and the handoffs cost
+far more than the ops.  The TCP and shaped backends, fabrics and barriers
+wait for a later slice.
 """
 
 from __future__ import annotations
@@ -47,10 +46,10 @@ def nbytes(t: torch.Tensor) -> int:
 
 class _Link:
     """One (src, dst) lane: a locked per-tag reorder buffer.  A blocked
-    ``put`` or ``get`` gives up the ``baton`` (if any) while it waits and
-    takes it back once it has left the link's lock."""
+    ``put`` or ``get`` gives up the ``baton`` while it waits and takes it
+    back once it has left the link's lock."""
 
-    def __init__(self, baton: threading.Lock | None, max_msgs: int = 0):
+    def __init__(self, baton: threading.Lock, max_msgs: int = 0):
         self._cond = threading.Condition()
         self._by_tag: dict[int, deque] = {}
         self._pending = 0
@@ -67,7 +66,7 @@ class _Link:
         return False
 
     def put(self, tag: int, data: torch.Tensor) -> None:
-        holding = self._baton is not None
+        holding = True
         try:
             with self._cond:
                 while self.max_msgs and self._pending >= self.max_msgs \
@@ -79,12 +78,12 @@ class _Link:
                 self._pending += 1
                 self._cond.notify_all()
         finally:
-            if self._baton is not None and not holding:
+            if not holding:
                 self._baton.acquire()
 
     def get(self, tag: int, timeout: float | None = None) -> torch.Tensor:
         deadline = None if timeout is None else time.monotonic() + timeout
-        holding = self._baton is not None
+        holding = True
         try:
             with self._cond:
                 while True:
@@ -107,7 +106,7 @@ class _Link:
                                 f"recv(tag={tag}) timed out after {timeout}s")
                     holding = self._wait(left, holding)
         finally:
-            if self._baton is not None and not holding:
+            if not holding:
                 self._baton.acquire()
 
     def close(self) -> None:
@@ -118,15 +117,14 @@ class _Link:
 
 class InprocTransport:
     """All endpoints in one process: per-link locked reorder buffers, with
-    sent-traffic accounting per (src, dst, tag).  With a ``baton``, every
-    thread that sends or receives must hold it (see the module note)."""
+    sent-traffic accounting per (src, dst, tag).  Every thread that sends
+    or receives must hold ``baton`` (see the module note)."""
 
     name = "inproc"
 
-    def __init__(self, num_endpoints: int,
-                 baton: threading.Lock | None = None):
+    def __init__(self, num_endpoints: int):
         self.num_endpoints = num_endpoints
-        self.baton = baton
+        self.baton = threading.Lock()
         self._links: dict[tuple[int, int], _Link] = {}
         self._lock = threading.Lock()
         self._stats: dict[tuple[int, int, int], LinkStats] = {}

@@ -9,7 +9,6 @@ collects their errors: the two-party Session builds one
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import threading
 from typing import Any, Callable, Sequence
@@ -17,6 +16,7 @@ from typing import Any, Callable, Sequence
 from .bytecode import Program
 from .dsl import trace
 from .engine import Engine, EngineStats, ProtocolDriver
+from .transport import InprocTransport
 
 
 @dataclasses.dataclass
@@ -58,25 +58,23 @@ class EngineJob:
 
 
 def run_engines(jobs: Sequence[EngineJob],
-                on_error: Callable[[], None] | None = None,
-                baton: threading.Lock | None = None) -> list[EngineStats]:
-    """Run one Engine per job, each on its own thread; re-raise failures.
-    ``on_error`` runs once an engine has failed, e.g. to close the fabric
-    so that its peer stops waiting for messages that will never come.
-    ``baton`` is the fabric's turn-taking lock (``core.transport``): each
-    engine holds it while it runs."""
+                transport: InprocTransport) -> list[EngineStats]:
+    """Run one Engine per job, each on its own thread, over ``transport``;
+    re-raise failures.  Each engine holds the transport's baton while it
+    runs (``core.transport``).  Once an engine has failed, the transport
+    closes, so that its peer stops waiting for messages that will never
+    come."""
     results: list[EngineStats | None] = [None] * len(jobs)
     errors: list[tuple[Any, Exception]] = []
 
     def _run(k: int, job: EngineJob) -> None:
         try:
-            with baton if baton is not None else contextlib.nullcontext():
+            with transport.baton:
                 results[k] = Engine(job.program, job.driver, job.device,
                                     job.batch_schedule).run()
         except Exception as e:  # surfaced below
             errors.append((job.tag if job.tag is not None else k, e))
-            if on_error is not None:
-                on_error()
+            transport.close()
 
     threads = [threading.Thread(target=_run, args=(k, job), daemon=True)
                for k, job in enumerate(jobs)]

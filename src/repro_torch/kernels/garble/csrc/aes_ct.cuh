@@ -4,7 +4,7 @@
 // The AES state of TWO blocks is bitsliced into eight 32-bit planes: plane b
 // holds bit b of state byte i (i = 4*column + row, the AES byte order) at
 // bit i for the first block and at bit 16 + i for the second.  SubBytes is
-// the Boyar-Peralta circuit (113 XOR/AND/XNOR gates) on the planes, so all
+// the Boyar-Peralta circuit (128 XOR/AND/XNOR gates) on the planes, so all
 // 32 bytes go through the S-box in one pass; ShiftRows and MixColumns are
 // rotations inside each 16-bit half and inside each 4-bit column.  Nothing
 // is looked up by secret data and nothing branches on it, so the

@@ -10,17 +10,19 @@
 // j0 = 2 * (gid0 + i), j1 = j0 + 1 (the TPU path cuts it to 32 bits).
 //
 // What bounds it on this card: integer ALU work.  A garbled gate is four
-// AES-128 passes (two for an evaluated gate); bitsliced two blocks to a
-// thread, a pass costs about 2.5e3 32-bit logic operations per block,
-// against 80 bytes of memory traffic per gate (two labels in, a label and a
-// two-row table out; an evaluated gate reads two labels and a table and
-// writes a label).  So the memory side is idle by two orders of magnitude
-// and the design spends nothing on it: one thread per gate, each label one
+// AES-128 passes (two for an evaluated gate); bitsliced, a pass needs at
+// least ~360 32-bit three-input logic operations per block (the count in
+// kernel.py), against 80 bytes of memory traffic per gate (two labels in, a
+// label and a two-row table out; an evaluated gate reads two labels and a
+// table and writes a label).  Even at that floor the ALU time is 3.6x the
+// memory time for a garbled gate and 1.8x for an evaluated one, and the
+// kernels' own circuits issue more, so the design spends nothing on the
+// memory side: one thread per gate, each label one
 // 16-byte load or store, the round keys in __constant__ memory (read at
 // uniform addresses, so broadcast), the whole state in registers.  The
 // main path launches tens of gates at a time, so a launch's time is one
 // thread's latency: bitslicing cuts the S-box from a GF(2^8) inversion per
-// byte to one 113-gate circuit for all 32 bytes of two blocks, and the
+// byte to one 128-gate circuit for all 32 bytes of two blocks, and the
 // garbler's four hashes run as two such passes.  SubBytes is lookup-free
 // on purpose (see aes_ct.cuh): no T-tables in shared memory, no S-box
 // indexed by state bytes, so execution stays oblivious to the labels.

@@ -97,17 +97,23 @@ def launch_eval(wa: torch.Tensor, wb: torch.Tensor, tab: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the least work per gate, for the roofline bound: two-input boolean gates
-# of the best known AES-128 circuits (SubBytes 16 x 113, Boyar-Peralta;
-# MixColumns 4 x 92 XORs, Maximov; AddRoundKey 128), plus the hash's
-# doubling-and-tweak and output XORs (2 x 128 per hash) and the half-gate
-# XORs; a 32-bit logic operation does 32 of them when bitsliced
+# the least work per gate, for the roofline bound.  The best known AES-128
+# circuits in two-input boolean gates: SubBytes 16 x 113 (Boyar-Peralta's
+# smallest; the kernels run their 128-gate depth-16 circuit), MixColumns
+# 4 x 92 XORs (Maximov), AddRoundKey 128; the hash adds the doubling-and-
+# tweak and output XORs (2 x 128 per hash), the half gates their XORs.
+# The card's logic operation is LOP3: any boolean function of three inputs
+# on 32 bit lanes in one instruction, so at best it does the work of a
+# two-gate tree (an XOR3, or an AND feeding an XOR).  The counts below are
+# in those 3-input operations, 32 lanes each: half the two-input gates,
+# over 32.
 # ---------------------------------------------------------------------------
 
 AES128_GATES = 10 * 16 * 113 + 9 * 4 * 92 + 11 * 128
 _HASH_GATES = AES128_GATES + 2 * 128
-GARBLE_GATES_PER_AND = 4 * _HASH_GATES + 6 * 128
-EVAL_GATES_PER_AND = 2 * _HASH_GATES + 4 * 128
+#: 32-bit 3-input logic operations per AND gate, at least
+GARBLE_LOP3_PER_AND = (4 * _HASH_GATES + 6 * 128) / 2 / 32
+EVAL_LOP3_PER_AND = (2 * _HASH_GATES + 4 * 128) / 2 / 32
 #: bytes a gate must move: each input read once, each output written once
 GARBLE_BYTES_PER_AND = 16 + 16 + 16 + 32      # a, b in; c, [TG|TE] out
 EVAL_BYTES_PER_AND = 16 + 16 + 32 + 16        # wa, wb, table in; c out

@@ -3,6 +3,8 @@ the JAX package's two-party batched Session on the same job: a merge whose
 budget forces swaps.  Outputs, AND gates and garbled-table traffic must be
 equal; entry points without a device must refuse to fall back."""
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -11,6 +13,8 @@ from repro.api import JobSpec as RefJobSpec, Session as RefSession
 from repro_torch import __main__ as cli
 from repro_torch.api import JobSpec, Session
 from repro_torch.core.storage import PinnedStorage, SwapIO
+from repro_torch.core.transport import (InprocTransport, TransportClosed,
+                                        TransportError)
 from repro_torch.kernels import resolve_device
 
 JOB = dict(n=64, memory_budget=5, lookahead=10_000, prefetch_pages=1)
@@ -89,3 +93,49 @@ def test_swap_io_moves_pages():
     assert io.bytes_read == io.bytes_written == 2 * 4 * 2 * 8
     with pytest.raises(KeyError):
         io.issue_read(5, 0)
+
+
+def test_transport_parties_take_turns():
+    """Each endpoint thread holds the baton while it runs; a sender blocked
+    by the depth bound gives it up, so its receiver gets to run."""
+    t = InprocTransport(2)
+    t.set_depth(0, 1, max_msgs=2)
+    got, holders = [], []
+
+    def party(fn):
+        with t.baton:
+            fn()
+            holders.append(t.baton.locked())
+
+    def send():
+        for k in range(6):
+            t.send(0, 1, 1, torch.full((2,), k))
+
+    def recv():
+        got.extend(int(t.recv(0, 1, 1, timeout=10)[0]) for _ in range(6))
+
+    threads = [threading.Thread(target=party, args=(f,)) for f in (send, recv)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert not any(th.is_alive() for th in threads)
+    assert got == list(range(6)) and holders == [True, True]
+    assert not t.baton.locked()
+    assert t.stats()[(0, 1, 1)].bytes == 6 * 2 * 8
+
+
+def test_transport_timeout_and_close_keep_the_baton():
+    """A receive that times out, or finds its link closed, raises and leaves
+    the caller holding the baton again."""
+    t = InprocTransport(2)
+    with t.baton:
+        with pytest.raises(TransportError, match="timed out"):
+            t.recv(0, 1, 1, timeout=0.05)
+        assert t.baton.locked()
+        threading.Timer(0.05, t.close).start()
+        with pytest.raises(TransportClosed):
+            t.recv(0, 1, 1)
+        assert t.baton.locked()
+    with pytest.raises(TransportError, match="bad link"):
+        t.send(0, 0, 1, torch.zeros(1))
