@@ -3,22 +3,41 @@
 
     python3 chip_smoke.py
 
-Phases, each raising on failure:
+It drives the port's two paths: the planned two-party garbled merge (GC)
+and the planned CKKS jobs.  Phases, each raising on failure:
 
-1. device   the card's name and power limit (nvidia-smi);
-2. build    the half-gates CUDA kernels from the sources in the checkout;
-3. kernels  each kernel against its plain PyTorch version on the card,
-            bit for bit, at the main path's launch sizes and beyond, gate
-            ids up to 2^40, all four truth-table rows; timings;
-4. parity   a small planned two-party merge on the card equals the same
-            job run with device="cpu" (outputs, AND count, table digest);
-5. main     the planned two-party merge at n=16384 records per party on
-            the card, checked against the workload's oracle, with swap
-            traffic and every AND gate through the kernels;
-6. record   each kernel timed at the main path's launch sizes, beside its
-            bound and its plain version;
-7. profile  the main path's shape at n=1024 under torch.profiler: device
-            time by op, and the device's busy share.
+1. device        the card's name and power limit (nvidia-smi);
+2. build         the half-gates and the NTT CUDA libraries from the
+                 sources in the checkout (ptxas' registers and spills);
+3. kernels       each half-gates kernel against its plain PyTorch version
+                 on the card, bit for bit, at the main path's launch sizes
+                 and beyond, gate ids up to 2^40, all four truth-table
+                 rows; timings;
+4. ntt kernels   the NTT forward, inverse and modular-product kernels
+                 against their plain versions on the card, bit for bit:
+                 N = 1024 at 1, 3, 12 and 4096 rows, each chain prime, the
+                 special prime and all four stacked in one launch; N in
+                 {64, 256, 8192} at odd row counts; round trips; negacyclic
+                 products against the O(N^2) product at N = 64;
+5. parity        a small planned two-party merge on the card equals the
+                 same job run with device="cpu" (outputs, AND count, table
+                 digest), and a sync-swap job;
+6. ckks parity   rmvmul n=4 and rstats n=8 at rings 128 and 1024 on the
+                 card equal their device="cpu" runs: decoded outputs and
+                 the final engine memory, bit for bit;
+7. main          the planned two-party merge at n=16384 records per party,
+                 checked against the oracle, every AND gate through the
+                 kernels;
+8. ckks main     rmvmul n=24 at ring 1024, levels 2, budget 0.4, 8
+                 prefetch pages, checked against the oracle (atol 2e-2),
+                 with the plan's 646/309 swaps and every transform and
+                 product through the kernels; then rstats n=128 at the
+                 same width;
+9. record        each kernel timed at its main path's launch sizes, beside
+                 its bound, its plain version and (the product) the
+                 PyTorch expression; the NTT kernels also at 4096 rows;
+10. profile      the GC path's shape at n=1024 and the CKKS main job under
+                 torch.profiler: device time by op, and the busy share.
 
 The last four lines are a JSON summary of the run's headline numbers, the
 card's name and power limit, the kernels' JSON record and
@@ -42,12 +61,20 @@ import torch  # noqa: E402
 
 from repro_torch.api import JobSpec, Session  # noqa: E402
 from repro_torch.kernels.garble import kernel as gk, ops, ref  # noqa: E402
+from repro_torch.kernels.ntt import kernel as nk  # noqa: E402
+from repro_torch.kernels.ntt import ops as nops, ref as nref  # noqa: E402
+from repro_torch.protocols.ckks.driver import homomorphic_ops  # noqa: E402
+from repro_torch.protocols.ckks.params import CkksParams  # noqa: E402
 
 #: H100 SXM peaks: HBM3 bandwidth (NVIDIA data sheet), and 32-bit
 #: three-input logic operations (LOP3) per second: 64 per SM per clock (CUDA
 #: C++ programming guide, compute capability 9.0) x 132 SMs x 1.98 GHz boost
 HBM_BYTES_PER_S = 3.35e12
 LOP3_PER_S = 132 * 64 * 1.98e9
+#: 32-bit integer operations per second: the same guide's table gives 64
+#: results per SM per clock for 32-bit add/subtract, multiply and
+#: multiply-add, shifts, compares and min/max at compute capability 9.0
+INT_OPS_PER_S = 132 * 64 * 1.98e9
 
 KERNEL_SIZES = (1, 16, 32, 37, 64, 4096, 1 << 20)
 GIDS = (0, (1 << 31) + 5, 1 << 40)
@@ -69,14 +96,17 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    t0 = time.perf_counter()
-    gk.library()
-    info = gk.build_info()
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {info.seconds:.2f} s)"
-        f" -> {os.path.relpath(info.path, ROOT)}")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for lib in (gk, nk):
+        t0 = time.perf_counter()
+        lib.library()
+        info = lib.build_info()
+        log(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
+            f"{info.seconds:.2f} s) -> {os.path.relpath(info.path, ROOT)}")
+        for line in info.log.splitlines():
+            if "Compiling entry" in line:
+                log(f"  ptxas: {line.strip().split('function ')[-1]}")
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 def _labels(rng: np.random.Generator, m: int, dev) -> torch.Tensor:
@@ -116,21 +146,26 @@ def _device_ms(fn, reps: int) -> float:
 
 def _kernel_ms(fn, name: str, reps: int) -> float | None:
     """Mean duration of the kernel ``name`` on the device over ``reps``
-    calls, from the profiler's CUDA trace; None if the trace shows none."""
+    calls, from the profiler's CUDA trace; None if three traces in a row
+    show none (a trace can come back without the kernel's records)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    tot = cnt = 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            tot += getattr(ev, "device_time_total", 0) or \
-                getattr(ev, "cuda_time_total", 0)
-            cnt += ev.count
-    return tot / cnt / 1e3 if cnt and tot else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        tot = cnt = 0
+        for ev in prof.key_averages():
+            if name in ev.key:
+                tot += getattr(ev, "device_time_total", 0) or \
+                    getattr(ev, "cuda_time_total", 0)
+                cnt += ev.count
+        if cnt and tot:
+            return tot / cnt / 1e3
+    log(f"  (the profiler showed no {name}; timing it with CUDA events)")
+    return None
 
 
 def phase_kernels(dev) -> tuple[dict, dict]:
@@ -391,6 +426,323 @@ def kernel_record(dev, counts: dict, errs: dict) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the CKKS path: NTT kernels, parity, main job, record, profile
+# ---------------------------------------------------------------------------
+
+#: the repo's benchmark width (the JAX package's BENCH_CKKS): chain primes
+#: q0, q1, q2 below 2^30 and the special prime P = 1073750017 above it
+BENCH_CKKS = CkksParams(n_ring=1024, levels=2)
+#: the CKKS main path: the JAX package's Fig. 8 CKKS case
+#: (benchmarks/fig8_swap.py, scenarios.py BENCH_CKKS)
+CKKS_MAIN = dict(workload="rmvmul", n=24, memory_budget=0.4,
+                 lookahead=10_000, prefetch_pages=8, ckks_ring=1024,
+                 ckks_levels=2)
+CKKS_MAIN_SWAPS = (646, 309)
+#: CT_MUL, CT_MUL_PLAIN and subtraction at the same width
+CKKS_STATS = dict(CKKS_MAIN, workload="rstats", n=128)
+#: (workload, n, ring, frames, prefetch): small enough for the CPU, and
+#: every budget swaps
+CKKS_PARITY = [("rmvmul", 4, 128, 3, 1), ("rstats", 8, 128, 4, 1),
+               ("rmvmul", 4, 1024, 4, 1), ("rstats", 8, 1024, 4, 1)]
+NTT_KERNELS = {   # name -> (profiler name, TPU kernel line in kernel.py)
+    "ntt_forward": ("ntt_fwd_kernel", 67),
+    "ntt_inverse": ("ntt_inv_kernel", 86),
+    "mul_mod": ("mul_mod_kernel", 108),
+}
+
+
+def _residues(rng: np.random.Generator, primes, shape, dev) -> torch.Tensor:
+    """Residues of shape (*shape, P, N) (P = len(primes) > 1) or shape,
+    each row below its prime."""
+    q = np.asarray(primes, dtype=np.int64)
+    if len(primes) > 1:
+        q = q[:, None]
+    x = rng.integers(0, 1 << 62, shape, dtype=np.int64) % q
+    return torch.from_numpy(x).to(dev)
+
+
+def _ntt_plain(kind: str, a: torch.Tensor, b, primes) -> torch.Tensor:
+    """The plain version on the card's tensors, with the wrapper's own
+    device tables."""
+    n = a.shape[-1]
+    ps = tuple(primes) if isinstance(primes, (list, tuple)) else (primes,)
+    t = nops.tables(ps, n, a.device)
+    v = a.reshape(-1, len(ps), n)
+    if kind == "ntt_forward":
+        out = nref.ntt_forward(v, t.q, t.psi)
+    elif kind == "ntt_inverse":
+        out = nref.ntt_inverse(v, t.q, t.psi_inv, t.n_inv)
+    else:
+        out = nref.mul_mod(v, b.reshape(v.shape), t.q)
+    return out.reshape(a.shape)
+
+
+def _ntt_kernel(kind: str, a, b, primes) -> torch.Tensor:
+    if kind == "mul_mod":
+        return nops.mul_mod(a, b, primes)
+    return getattr(nops, kind)(a, primes)
+
+
+def _schoolbook(a: list[int], b: list[int], q: int) -> list[int]:
+    """O(N^2) negacyclic product in Python ints."""
+    n = len(a)
+    c = [0] * n
+    for i in range(n):
+        for j in range(n):
+            k, v = i + j, a[i] * b[j]
+            if k < n:
+                c[k] = (c[k] + v) % q
+            else:
+                c[k - n] = (c[k - n] - v) % q
+    return c
+
+
+def phase_ntt_kernels(dev) -> dict:
+    """Every NTT kernel against its plain version, bit for bit; returns
+    each kernel's max_abs_err over the comparisons."""
+    rng = np.random.default_rng(1024)
+    errs = {k: 0 for k in NTT_KERNELS}
+    chain = BENCH_CKKS.primes + [BENCH_CKKS.special_prime]
+    cases = [(1024, [q], (r, 1024)) for q in chain for r in (1, 3, 12, 4096)]
+    cases += [(1024, chain, (r, 4, 1024)) for r in (1, 3, 12, 4096)]
+    for n in (64, 256, 8192):
+        p = CkksParams(n_ring=n, levels=2)
+        ps = p.primes + [p.special_prime]
+        cases += [(n, ps, (r, 4, n)) for r in (1, 3, 5, 7)]
+        cases += [(n, [ps[0]], (r, n)) for r in (1, 3, 5)]
+    for n, primes, shape in cases:
+        a = _residues(rng, primes, shape, dev)
+        b = _residues(rng, primes, shape, dev)
+        pr = primes if len(primes) > 1 else primes[0]
+        for kind in NTT_KERNELS:
+            got = _ntt_kernel(kind, a, b, pr)
+            err = _max_abs_err((got,), (_ntt_plain(kind, a, b, pr),))
+            errs[kind] = max(errs[kind], err)
+            if err:
+                raise AssertionError(f"{kind} != plain at N={n} primes "
+                                     f"{primes} shape {shape}: "
+                                     f"max_abs_err {err}")
+        if not torch.equal(nops.ntt_inverse(nops.ntt_forward(a, pr), pr), a):
+            raise AssertionError(f"inverse(forward(a)) != a at N={n}, "
+                                 f"shape {shape}")
+    q = CkksParams(n_ring=64).primes[0]
+    a = _residues(rng, [q], (3, 64), dev)
+    b = _residues(rng, [q], (3, 64), dev)
+    c = nops.ntt_inverse(nops.mul_mod(nops.ntt_forward(a, q),
+                                      nops.ntt_forward(b, q), q), q).cpu()
+    for i in range(3):
+        want = _schoolbook(a[i].tolist(), b[i].tolist(), q)
+        if c[i].tolist() != want:
+            raise AssertionError("negacyclic product != O(N^2) product")
+    torch.cuda.synchronize()
+    log(f"ntt kernels: ntt_forward, ntt_inverse and mul_mod equal their "
+        f"plain versions bit for bit (tolerance 0: integer arithmetic) in "
+        f"{len(cases)} cases: N=1024 at 1/3/12/4096 rows for q0, q1, q2, "
+        f"P={BENCH_CKKS.special_prime} and all four in one launch; N in "
+        f"(64, 256, 8192) at odd row counts; round trips; negacyclic "
+        f"products at N=64 equal the O(N^2) product")
+    return errs
+
+
+def _ckks_job(spec: dict, device) -> tuple:
+    s = Session(JobSpec(**spec), device=device)
+    t0 = time.perf_counter()
+    out = s.execute(check=True)
+    return s, out, time.perf_counter() - t0
+
+
+def phase_ckks_parity(dev) -> dict:
+    rows = {}
+    for wl, n, ring, frames, prefetch in CKKS_PARITY:
+        spec = dict(workload=wl, n=n, memory_budget=frames,
+                    prefetch_pages=prefetch, ckks_ring=ring)
+        gpu, out_g, t_g = _ckks_job(spec, dev)
+        cpu, out_c, t_c = _ckks_job(spec, "cpu")
+        if sorted(out_g) != sorted(out_c) or \
+                not all(np.array_equal(out_g[k], out_c[k]) for k in out_g):
+            raise AssertionError(f"{wl} ring {ring}: card and CPU outputs "
+                                 f"differ")
+        if not torch.equal(gpu.engines[0].memory.cpu(),
+                           cpu.engines[0].memory):
+            raise AssertionError(f"{wl} ring {ring}: card and CPU engine "
+                                 f"memory differ")
+        st = gpu.engine_stats[0]
+        if st.swap_ins == 0:
+            raise AssertionError(f"{wl} ring {ring}: no swaps")
+        log(f"ckks parity: {wl} n={n} ring {ring} on the card ({t_g:.2f} s)"
+            f" == on the CPU ({t_c:.2f} s): {len(out_g)} outputs and the "
+            f"final engine memory bit for bit; swaps in/out "
+            f"{st.swap_ins}/{st.swap_outs}")
+        rows[f"{wl}-{ring}"] = {"card_s": t_g, "cpu_s": t_c}
+    return rows
+
+
+def _ckks_checked_run(spec: dict, dev) -> tuple:
+    """Run one CKKS job with the NTT counters set to 0 just before it and
+    read just after; check that every transform and product the cipher
+    asked for went through a kernel."""
+    nops.reset_counts()
+    s, out, seconds = _ckks_job(spec, dev)
+    counts = nops.counts()
+    asked = {k: s.ckks_counts.get(k, 0) for k in NTT_KERNELS}
+    if counts["rows"] != asked:
+        raise AssertionError(f"rows through the kernels {counts['rows']} "
+                             f"!= rows the cipher asked for {asked}")
+    if any(counts["plain_calls"].values()):
+        raise AssertionError(f"plain versions ran: {counts['plain_calls']}")
+    if not all(counts["launches"].values()):
+        raise AssertionError(f"a kernel never launched: "
+                             f"{counts['launches']}")
+    return s, out, seconds, counts
+
+
+def phase_ckks_main(dev) -> tuple[dict, dict]:
+    """The CKKS main path; returns the NTT kernels' counts from its run
+    and its end-to-end metrics."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    s, out, seconds, counts = _ckks_checked_run(CKKS_MAIN, dev)
+    rep = s.plan_reports[0].replacement
+    st = s.engine_stats[0]
+    swaps = (st.swap_ins, st.swap_outs)
+    if (rep.swap_ins, rep.swap_outs) != CKKS_MAIN_SWAPS or \
+            swaps != CKKS_MAIN_SWAPS:
+        raise AssertionError(f"swaps {swaps} (plan {rep.swap_ins}/"
+                             f"{rep.swap_outs}) != {CKKS_MAIN_SWAPS}")
+    t = s.timings
+    he = homomorphic_ops(s.op_counts)
+    log(f"ckks main: rmvmul n={CKKS_MAIN['n']} at ring 1024, levels 2, "
+        f"budget {CKKS_MAIN['memory_budget']} ({s.config.num_frames} frames,"
+        f" {s.config.prefetch_pages} prefetch), {len(out)} outputs checked "
+        f"against the oracle (atol 2e-2)")
+    log(f"  seconds: trace {t['trace_s']:.3f}, plan {t['plan_s']:.3f}, "
+        f"batch schedule {t['batch_schedule_s']:.3f}, execute "
+        f"{t['execute_s']:.3f} (keygen {t['keygen_s']:.3f}; all "
+        f"{seconds:.3f})")
+    log(f"  instructions {st.instructions} ({s.op_counts}), {he} "
+        f"homomorphic ops, {he / t['execute_s']:.1f} per second")
+    log(f"  swaps: {swaps[0]} in / {swaps[1]} out, {st.io_read_bytes} / "
+        f"{st.io_write_bytes} bytes; frame memory {st.frame_bytes} bytes, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)}")
+    log(f"  rows through the kernels (== the cipher's count) "
+        f"{counts['rows']}, launches {counts['launches']}")
+    metrics = {"n": CKKS_MAIN["n"], **t, "instructions": st.instructions,
+               "op_counts": s.op_counts, "he_ops": he,
+               "he_ops_per_s": he / t["execute_s"], "swaps": list(swaps),
+               "swap_bytes": [st.io_read_bytes, st.io_write_bytes],
+               "rows": counts["rows"], "launches": counts["launches"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    s2, out2, sec2, c2 = _ckks_checked_run(CKKS_STATS, dev)
+    st2 = s2.engine_stats[0]
+    log(f"ckks rstats: n={CKKS_STATS['n']} at the same width, {len(out2)} "
+        f"outputs checked against the oracle, execute "
+        f"{s2.timings['execute_s']:.3f} s, {st2.instructions} instructions "
+        f"({s2.op_counts}), swaps {st2.swap_ins}/{st2.swap_outs}, rows "
+        f"{c2['rows']}")
+    metrics["rstats"] = {"n": CKKS_STATS["n"], **s2.timings,
+                         "instructions": st2.instructions,
+                         "swaps": [st2.swap_ins, st2.swap_outs],
+                         "rows": c2["rows"]}
+    return counts, metrics
+
+
+def _ntt_work(kind: str, rows: int, n: int) -> tuple[int, int]:
+    """(integer operations, bytes) of one launch over rows of one prime."""
+    if kind == "mul_mod":
+        return nk.mul_mod_ops(rows, n), nk.mul_mod_bytes(rows, n, 1)
+    return (nk.transform_ops(rows, n, kind == "ntt_inverse"),
+            nk.transform_bytes(rows, n, 1))
+
+
+def _ntt_timing(kind: str, rows: int, n: int, dev, rng, reps: int) -> dict:
+    """One launch size: kernel, plain and (product) library times, and
+    the bound, on rows of q1; checks the kernel against the plain version
+    on the same inputs."""
+    q = BENCH_CKKS.primes[1]
+    a = _residues(rng, [q], (rows, n), dev)
+    b = _residues(rng, [q], (rows, n), dev)
+    qcol = torch.full((1, 1), q, dtype=torch.int64, device=dev)
+    kfn = lambda: _ntt_kernel(kind, a, b, q)  # noqa: E731
+    pfn = lambda: _ntt_plain(kind, a, b, q)  # noqa: E731
+    err = _max_abs_err((kfn(),), (pfn(),))
+    if err:
+        raise AssertionError(f"{kind} != plain at {rows} rows: {err}")
+    ops_n, bytes_n = _ntt_work(kind, rows, n)
+    ms = _kernel_ms(kfn, NTT_KERNELS[kind][0], reps) or _device_ms(kfn, reps)
+    return {"ms": ms, "plain_ms": _device_ms(pfn, max(reps // 20, 5)),
+            # the same product as one PyTorch expression: two calls
+            "library_ms": _device_ms(lambda: (a * b) % qcol, reps)
+            if kind == "mul_mod" else None,
+            "ops_ms": ops_n / INT_OPS_PER_S * 1e3,
+            "bytes_ms": bytes_n / HBM_BYTES_PER_S * 1e3, "err": err}
+
+
+def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
+    """Each NTT kernel at every launch size of the CKKS main path,
+    launch-weighted as kernel_record does, and at 4096 rows."""
+    rng = np.random.default_rng(12)
+    n = BENCH_CKKS.n_ring
+    rows_out, big = [], {}
+    for kind, (kname, line) in NTT_KERNELS.items():
+        sizes = counts["launch_sizes"][kind]
+        total = sum(sizes.values())
+        acc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "ops_ms": 0.0, "bytes_ms": 0.0}
+        for r, k in sizes.items():
+            one = _ntt_timing(kind, r, n, dev, rng, 200)
+            for key in acc:
+                acc[key] += k / total * (one[key] or 0.0)
+        bound = max(acc["ops_ms"], acc["bytes_ms"])
+        at4k = _ntt_timing(kind, 4096, n, dev, rng, 50)
+        big[kind] = at4k
+        rows_out.append({
+            "name": kind, "route": "cuda",
+            "source": "src/repro_torch/kernels/ntt/csrc/ntt.cu",
+            "replaces": f"src/repro/kernels/ntt/kernel.py:{line}",
+            "launches": counts["launches"][kind],
+            "max_abs_err": float(errs[kind]),
+            "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": bound,
+            "bound_by": "operations" if acc["ops_ms"] >= acc["bytes_ms"]
+            else "bytes",
+            "library_ms": acc["library_ms"] if kind == "mul_mod" else None})
+        log(f"  {kind} over the CKKS main path's launch sizes "
+            f"{dict(sorted(sizes.items()))}: {acc['ms']:.5f} ms per launch "
+            f"(bound {bound:.3e} ms, plain {acc['plain_ms']:.4f} ms"
+            + (f", (a * b) % q {acc['library_ms']:.4f} ms"
+               if kind == "mul_mod" else "") + ")")
+        b4k = max(at4k["ops_ms"], at4k["bytes_ms"])
+        by = "operations" if at4k["ops_ms"] >= at4k["bytes_ms"] else "bytes"
+        log(f"  {kind} at 4096 rows of N=1024: {at4k['ms']:.5f} ms (bound "
+            f"{b4k:.4f} ms by {by}, {b4k / at4k['ms']:.3g} of it), plain "
+            f"{at4k['plain_ms']:.4f} ms"
+            + (f", (a * b) % q {at4k['library_ms']:.4f} ms"
+               if kind == "mul_mod" else ""))
+    return rows_out, big
+
+
+def phase_ckks_profile(dev) -> dict:
+    """The CKKS main job under torch.profiler: device time by op and the
+    busy share of the execute stage (a lower bound on the unprofiled
+    run's, since the profiler slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    s = Session(JobSpec(**CKKS_MAIN), device=dev)
+    s.plan()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s.execute(check=True)
+    wall_ms = s.timings["execute_s"] * 1e3
+    evs = sorted(prof.key_averages(), key=_dev_us, reverse=True)
+    busy_ms = sum(_dev_us(e) for e in evs) / 1e3
+    log(f"ckks profile: rmvmul n={CKKS_MAIN['n']}, execute {wall_ms:.1f} ms "
+        f"under the profiler, device busy {busy_ms:.1f} ms "
+        f"({busy_ms / wall_ms:.3f} of it; idle share "
+        f"{1 - busy_ms / wall_ms:.3f})")
+    top = []
+    for e in evs[:10]:
+        log(f"  {_dev_us(e) / 1e3:10.2f} ms  {e.count:8d}x  {e.key[:70]}")
+        top.append([e.key[:60], _dev_us(e) / 1e3, e.count])
+    return {"execute_ms": wall_ms, "busy_ms": busy_ms, "top": top}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -408,16 +760,25 @@ def main() -> None:
     smi = timed("device", phase_device)
     timed("build", phase_build)
     errs, big = timed("kernels", phase_kernels, dev)
+    ntt_errs = timed("ntt kernels", phase_ntt_kernels, dev)
     parity = timed("parity", phase_parity, dev)
+    ckks_parity = timed("ckks parity", phase_ckks_parity, dev)
     counts, metrics = timed("main", phase_main, dev)
+    ntt_counts, ckks_metrics = timed("ckks main", phase_ckks_main, dev)
     rows = timed("record", kernel_record, dev, counts, errs)
+    ntt_rows, ntt_big = timed("ntt record", ntt_record, dev, ntt_counts,
+                              ntt_errs)
     profiled = timed("profile", phase_profile, dev)
+    ckks_profiled = timed("ckks profile", phase_ckks_profile, dev)
     # the run's headline numbers, kept near the end of the output
     log("summary: " + json.dumps({
         "main": metrics, "m=2^20": big, "parity": parity,
-        "profile": profiled, "total_s": time.perf_counter() - t_all}))
+        "profile": profiled, "ckks_main": ckks_metrics,
+        "ntt_4096_rows": ntt_big, "ckks_parity": ckks_parity,
+        "ckks_profile": ckks_profiled, "phases_s": phases,
+        "total_s": time.perf_counter() - t_all}))
     print(smi, flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows + ntt_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,17 @@
-"""``python -m repro_torch``: run a planned two-party job on the card.
+"""``python -m repro_torch``: run a planned job on the card.
 
     python -m repro_torch run --workload merge -n 16384 --budget 0.4 \\
         --prefetch 64 --lookahead 10000 --real --check [--device cpu]
+    python -m repro_torch run --workload rmvmul -n 24 --budget 0.4 \\
+        --prefetch 8 --ckks-ring 1024 --check [--device cpu]
 
 ``run`` traces, plans and executes in-process (trace → plan → execute)
-and prints a JSON summary: timings, AND gates, swap traffic, outputs.
-Only real two-party execution is ported; the plaintext oracle, saved
-plans and the fleet launcher wait for later slices.
+and prints a JSON summary: timings, swap traffic, outputs, and for a
+garbled-circuit job its AND gates, for a CKKS job its instructions,
+homomorphic ops per second and transforms.  Garbled circuits run only
+with real two-party crypto (``--real``); CKKS is real crypto either way.
+The plaintext oracle, saved plans and the fleet launcher wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import json
 import sys
 
 from .api import JobSpec, Session
+from .protocols.ckks.driver import homomorphic_ops
+from .workloads import get
 
 
 def _parse_budget(text: str) -> int | float:
@@ -25,16 +32,32 @@ def _parse_budget(text: str) -> int | float:
     return int(text)
 
 
+def _protocol_summary(s: Session) -> dict:
+    t = s.timings["execute_s"]
+    if s.protocol == "ckks":
+        he = homomorphic_ops(s.op_counts)
+        p = s.ckks_params()
+        return {"ckks": {"n_ring": p.n_ring, "levels": p.levels},
+                "instructions": s.engine_stats[0].instructions,
+                "op_counts": s.op_counts,
+                "homomorphic_ops": he, "homomorphic_ops_per_s": he / t,
+                "transforms": {k: s.ckks_counts.get(k, 0)
+                               for k in ("ntt_forward", "ntt_inverse")},
+                "mul_mod_rows": s.ckks_counts.get("mul_mod", 0)}
+    ands = s.gate_counts[0].ands
+    return {"and_gates": ands, "and_gates_per_s": ands / t}
+
+
 def _run(args: argparse.Namespace) -> int:
-    if not args.real:
-        print("error: only real two-party execution is ported; pass --real",
-              file=sys.stderr)
+    if get(args.workload).protocol == "gc" and not args.real:
+        print("error: garbled circuits run only with real two-party "
+              "crypto; pass --real", file=sys.stderr)
         return 2
     spec = JobSpec(args.workload, n=args.n, memory_budget=args.budget,
-                   lookahead=args.lookahead, prefetch_pages=args.prefetch)
+                   lookahead=args.lookahead, prefetch_pages=args.prefetch,
+                   ckks_ring=args.ckks_ring, ckks_levels=args.ckks_levels)
     s = Session(spec, device=args.device)
     out = s.execute(real=True, check=args.check)
-    ands = s.gate_counts[0].ands
     summary = {
         "device": str(s.device),
         "spec": {"workload": s.spec.workload, "n": s.spec.n,
@@ -43,8 +66,7 @@ def _run(args: argparse.Namespace) -> int:
                  "prefetch_pages": s.config.prefetch_pages if s.config
                  else None, "lookahead": s.spec.lookahead},
         "timings_s": s.timings,
-        "and_gates": ands,
-        "and_gates_per_s": ands / s.timings["execute_s"],
+        **_protocol_summary(s),
         "swap_ins": [e.swap_ins for e in s.engine_stats],
         "swap_outs": [e.swap_outs for e in s.engine_stats],
         "outputs": len(out),
@@ -70,7 +92,12 @@ def main(argv: list[str] | None = None) -> int:
     r.add_argument("--prefetch", type=int, default=0)
     r.add_argument("--lookahead", type=int, default=10_000)
     r.add_argument("--real", action="store_true",
-                   help="real two-party garbled circuits (the only mode)")
+                   help="real two-party garbled circuits (the only GC mode; "
+                   "CKKS needs no flag)")
+    r.add_argument("--ckks-ring", type=int, default=None,
+                   help="CKKS ring dimension N (default: the workload's)")
+    r.add_argument("--ckks-levels", type=int, default=None,
+                   help="CKKS multiplicative depth (default: the workload's)")
     r.add_argument("--check", action="store_true",
                    help="compare outputs with the workload's oracle")
     r.add_argument("--device", default=None,

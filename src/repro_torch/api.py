@@ -1,13 +1,15 @@
 """The port's facade: a ``JobSpec`` and a staged ``Session``, the
-counterpart of ``repro.api`` for the path this slice runs:
+counterpart of ``repro.api`` for the paths the port runs:
 
     trace() → plan() → execute(real=True, check=...)
 
-A planned two-party garbled-circuit job, one worker per party: the garbler
-and the evaluator run as two engine threads in this process, on one
-device, over an in-process channel; their AND gates go through the
-half-gates kernels.  The device is the card unless the caller passes
-``device="cpu"``; without a card and without that, the Session raises.
+``execute`` dispatches on the workload's protocol.  A garbled-circuit job
+runs two parties, one worker each: the garbler and the evaluator are two
+engine threads in this process, on one device, over an in-process channel,
+and their AND gates go through the half-gates kernels.  A CKKS job runs
+one engine whose transforms and products go through the NTT kernels.  The
+device is the card unless the caller passes ``device="cpu"``; without a
+card and without that, the Session raises.
 """
 
 from __future__ import annotations
@@ -19,20 +21,28 @@ import numpy as np
 import torch
 
 from .core.bytecode import Program
-from .core.engine import EngineStats
+from .core.engine import Engine, EngineStats
 from .core.liveness import stripped_touches, working_set_pages
 from .core.planner import PlanConfig, PlanReport, plan
 from .core.transport import InprocTransport, LinkStats
 from .core.workers import EngineJob, run_engines
+from .exec.batched_ckks import BatchedCkksDriver
 from .exec.batched_gc import BatchedGCDriver
 from .exec.batching import build_batch_schedule
 from .kernels import resolve_device
+from .protocols.ckks.driver import CkksDriver
+from .protocols.ckks.params import CkksParams
 from .protocols.garbled.driver import EvaluatorDriver, GarblerDriver
 from .protocols.garbled.gates import GateCounts, PartyChannel
 from .workloads import Workload, get
+from .workloads.ckks_workloads import PARAMS as DEFAULT_CKKS
 
 #: the garbler's label seed, as in the JAX package's two-party Session
 GARBLER_SEED = 7
+#: the CKKS driver's key and noise seed, as in the JAX package's Session
+CKKS_SEED = 0xCEC5
+#: the largest |output - oracle| a CKKS job may show (the JAX package's)
+CKKS_ATOL = 2e-2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +59,8 @@ class JobSpec:
     memory_budget: int | float | None = None
     lookahead: int = 10_000               # plan knobs (paper l and B)
     prefetch_pages: int = 0
+    ckks_ring: int | None = None          # CKKS N override (benchmarks)
+    ckks_levels: int | None = None
 
     def __post_init__(self):
         if self.memory_budget is None:
@@ -78,27 +90,40 @@ def resolve_plan_config(spec: JobSpec, working_set: int) -> PlanConfig:
                       prefetch_pages=prefetch)
 
 
-def check_outputs(w: Workload, n: int, outputs: dict[int, np.ndarray]
-                  ) -> None:
-    """Compare executed outputs with the workload's numpy oracle."""
-    exp = w.oracle(n)
+def check_outputs(w: Workload, n: int, outputs: dict[int, np.ndarray],
+                  **extra) -> None:
+    """Compare executed outputs with the workload's numpy oracle: exactly
+    for garbled circuits, within ``CKKS_ATOL`` for CKKS (approximate
+    arithmetic).  ``extra`` reaches the oracle (``ckks_params``)."""
+    exp = w.oracle(n, **extra)
     missing = set(exp) - set(outputs)
     if missing:
         raise AssertionError(f"{w.name}: missing outputs "
                              f"{sorted(missing)[:5]}...")
     for tag, e in exp.items():
-        if not np.array_equal(outputs[tag], e):
-            raise AssertionError(f"{w.name} tag {tag}: {outputs[tag][:4]} "
-                                 f"!= {e[:4]}")
+        got = outputs[tag]
+        if w.protocol == "gc":
+            if not np.array_equal(got, e):
+                raise AssertionError(f"{w.name} tag {tag}: {got[:4]} != "
+                                     f"{e[:4]}")
+        else:
+            err = np.max(np.abs(np.asarray(got) - e))
+            if not err < CKKS_ATOL:
+                raise AssertionError(f"{w.name} tag {tag}: err {err}")
 
 
 class Session:
     """Staged trace→plan→execute over one JobSpec on one device.
 
-    After ``execute()``: ``engine_stats`` (garbler, evaluator),
-    ``gate_counts`` (garbler, evaluator), ``transport_stats`` of the party
-    link, ``timings`` (``trace_s``, ``plan_s``, ``execute_s``) and, with
-    ``digest=True``, ``table_digest`` of the garbled-table stream."""
+    After ``execute()``: ``engines`` (each holding its final ``memory``),
+    their ``engine_stats``, ``timings`` (``trace_s``, ``plan_s``,
+    ``batch_schedule_s``, ``execute_s``) and the protocol's records.
+    Garbled circuits: ``gate_counts`` (garbler, evaluator),
+    ``transport_stats`` of the party link and, with ``digest=True``,
+    ``table_digest`` of the garbled-table stream.  CKKS:
+    ``ckks_counts``, the rows of the transforms and modular products the
+    job asked for (``ntt_forward``, ``ntt_inverse``, ``mul_mod``; key
+    generation included), and ``op_counts``, its instructions by opcode."""
 
     def __init__(self, spec: JobSpec, device: str | torch.device | None = None):
         self.device = resolve_device(device)
@@ -108,17 +133,36 @@ class Session:
         self._planned: list[Program] | None = None
         self.config: PlanConfig | None = None
         self.plan_reports: list[PlanReport] = []
+        self.engines: list[Engine] = []
         self.engine_stats: list[EngineStats] = []
         self.gate_counts: list[GateCounts] = []
         self.transport_stats: dict[tuple[int, int, int], LinkStats] = {}
         self.timings: dict[str, float] = {}
         self.table_digest: str | None = None
+        self.ckks_counts: dict[str, int] = {}
+        self.op_counts: dict[str, int] = {}
+
+    @property
+    def protocol(self) -> str:
+        return self.workload.protocol
+
+    def ckks_params(self) -> CkksParams:
+        """The CKKS workloads' parameters with the spec's ring and levels
+        (the scale and noise parameters stay)."""
+        p = DEFAULT_CKKS
+        return dataclasses.replace(p, n_ring=self.spec.ckks_ring or p.n_ring,
+                                   levels=self.spec.ckks_levels or p.levels)
+
+    def _extra(self) -> dict:
+        """What the workload's trace, inputs and oracle take beyond n."""
+        return {"ckks_params": self.ckks_params()} \
+            if self.protocol == "ckks" else {}
 
     def trace(self) -> list[Program]:
         """Trace the workload's DSL program (placement, §6.1)."""
         if self._progs is None:
             t0 = time.perf_counter()
-            self._progs = self.workload.trace(self.spec.n, 1)
+            self._progs = self.workload.trace(self.spec.n, 1, **self._extra())
             self.timings["trace_s"] = time.perf_counter() - t0
         return self._progs
 
@@ -148,39 +192,74 @@ class Session:
 
     def execute(self, real: bool = True, check: bool = False,
                 digest: bool = False) -> dict[int, np.ndarray]:
-        """Run the plan with real two-party crypto; returns the evaluator's
-        ``tag -> value`` outputs (checked against the oracle with
-        ``check``).  ``digest`` hashes the garbled-table stream, which
-        copies every table to the host."""
-        if not real:
+        """Run the plan; returns the ``tag -> value`` outputs (checked
+        against the oracle with ``check``).  Garbled circuits run with real
+        two-party crypto (``real=False``, the plaintext driver, is not
+        ported); ``digest`` hashes the garbled-table stream, which copies
+        every table to the host.  CKKS is real crypto either way."""
+        if self.protocol == "gc" and not real:
             raise NotImplementedError("the plaintext driver is not ported "
                                       "yet; run with real=True")
         planned = self.plan()
-        dev = self.device
-        w, n = self.workload, self.spec.n
         t0 = time.perf_counter()
         sched = build_batch_schedule(planned[0])
         self.timings["batch_schedule_s"] = time.perf_counter() - t0
+        if self.protocol == "ckks":
+            outputs = self._execute_ckks(planned[0], sched)
+        else:
+            outputs = self._execute_gc(planned[0], sched, digest)
+        if check:
+            check_outputs(self.workload, self.spec.n, outputs,
+                          **self._extra())
+        return outputs
+
+    def _run(self, jobs: list[EngineJob], transport: InprocTransport
+             ) -> None:
+        t0 = time.perf_counter()
+        try:
+            self.engines = run_engines(jobs, transport)
+            self.engine_stats = [e.stats for e in self.engines]
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        finally:
+            transport.close()
+        self.timings["execute_s"] = time.perf_counter() - t0
+
+    def _execute_gc(self, planned: Program, sched, digest: bool
+                    ) -> dict[int, np.ndarray]:
+        dev = self.device
+        w, n = self.workload, self.spec.n
         transport = InprocTransport(2)
         ch = PartyChannel(transport, src=0, dst=1, digest=digest)
         gd = GarblerDriver(ch, dev, w.inputs(n, 0, 1), seed=GARBLER_SEED)
         ed = EvaluatorDriver(ch, dev, w.inputs(n, 0, 1))
-        jobs = [EngineJob(planned[0], BatchedGCDriver(d), dev, sched,
-                          tag=f"party{p}/worker0")
-                for p, d in enumerate((gd, ed))]
-        t0 = time.perf_counter()
-        try:
-            self.engine_stats = run_engines(jobs, transport)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        finally:
-            transport.close()
-        self.timings["execute_s"] = time.perf_counter() - t0
+        self._run([EngineJob(planned, BatchedGCDriver(d), dev, sched,
+                             tag=f"party{p}/worker0")
+                   for p, d in enumerate((gd, ed))], transport)
         self.gate_counts = [gd.gates.counts, ed.gates.counts]
         self.transport_stats = transport.stats()
         if digest:
             self.table_digest = ch.table_digest()
-        outputs = dict(ed.outputs)
-        if check:
-            check_outputs(w, n, outputs)
-        return outputs
+        return dict(ed.outputs)
+
+    def _execute_ckks(self, planned: Program, sched
+                      ) -> dict[int, np.ndarray]:
+        """One engine over a one-party transport.  Key generation (the
+        driver's context) counts in ``execute_s``, as it runs inside the
+        reference's execute too; ``keygen_s`` is its share."""
+        dev = self.device
+        transport = InprocTransport(1)
+        t0 = time.perf_counter()
+        drv = CkksDriver(self.ckks_params(),
+                         self.workload.inputs(self.spec.n, 0, 1,
+                                              **self._extra()),
+                         seed=CKKS_SEED, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.timings["keygen_s"] = time.perf_counter() - t0
+        self._run([EngineJob(planned, BatchedCkksDriver(drv), dev, sched,
+                             tag="party0/worker0")], transport)
+        self.timings["execute_s"] += self.timings["keygen_s"]
+        self.ckks_counts = dict(drv.ctx.counts)
+        self.op_counts = {op.name: k for op, k in drv.op_counts.items()}
+        return dict(drv.outputs)

@@ -15,7 +15,7 @@ from typing import Any, Callable, Sequence
 
 from .bytecode import Program
 from .dsl import trace
-from .engine import Engine, EngineStats, ProtocolDriver
+from .engine import Engine, ProtocolDriver
 from .transport import InprocTransport
 
 
@@ -58,20 +58,23 @@ class EngineJob:
 
 
 def run_engines(jobs: Sequence[EngineJob],
-                transport: InprocTransport) -> list[EngineStats]:
+                transport: InprocTransport) -> list[Engine]:
     """Run one Engine per job, each on its own thread, over ``transport``;
-    re-raise failures.  Each engine holds the transport's baton while it
-    runs (``core.transport``).  Once an engine has failed, the transport
-    closes, so that its peer stops waiting for messages that will never
-    come."""
-    results: list[EngineStats | None] = [None] * len(jobs)
+    return the engines (their ``stats``, and their ``memory`` as the run
+    left it) or re-raise failures.  Each engine holds the transport's
+    baton while it runs (``core.transport``).  Once an engine has failed,
+    the transport closes, so that its peer stops waiting for messages that
+    will never come."""
+    results: list[Engine | None] = [None] * len(jobs)
     errors: list[tuple[Any, Exception]] = []
 
     def _run(k: int, job: EngineJob) -> None:
         try:
             with transport.baton:
-                results[k] = Engine(job.program, job.driver, job.device,
-                                    job.batch_schedule).run()
+                eng = Engine(job.program, job.driver, job.device,
+                             job.batch_schedule)
+                eng.run()
+                results[k] = eng
         except Exception as e:  # surfaced below
             errors.append((job.tag if job.tag is not None else k, e))
             transport.close()

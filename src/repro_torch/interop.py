@@ -1,19 +1,27 @@
-"""Carry the JAX package's planned state into the port.
+"""Carry the JAX package's planned state and keys into the port.
 
 A planned memory program crosses as the fixed-width instruction records
 both packages share (``core.bytecode``: same opcodes, same layout) plus a
 header of the program's fields, so neither side imports the other: the
 JAX package's ``encode_chunk(program.instrs)`` produces ``rec``.
 
-The garbler's state needs no converter: R and every fresh label come from
-``numpy.random.default_rng(seed)`` in the same order in both packages.
+A CKKS context crosses as its keys, NumPy arrays (``ckks_context_from_keys``):
+the counterpart of carrying a model's weights across.  The garbler's state
+needs no converter: R and every fresh label come from
+``numpy.random.default_rng(seed)`` in the same order in both packages, as
+do a CKKS context's keys when both are built from one seed.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
+import torch
 
 from .core.bytecode import Program, decode_chunk
+from .protocols.ckks.cipher import CkksContext
+from .protocols.ckks.params import CkksParams
 
 HEADER_FIELDS = ("page_shift", "phase", "num_frames", "prefetch_slots",
                  "vspace_slots", "meta")
@@ -37,3 +45,32 @@ def program_from_records(rec: np.ndarray, header: dict) -> Program:
                    num_frames=int(header["num_frames"]),
                    prefetch_slots=int(header["prefetch_slots"]),
                    meta=dict(header["meta"]))
+
+
+def ckks_context_from_keys(
+        params: CkksParams, s_int: np.ndarray,
+        evk: dict[int, Sequence[tuple[np.ndarray, np.ndarray]]],
+        device: str | torch.device | None = None,
+        rng: np.random.Generator | None = None) -> CkksContext:
+    """The port's CKKS context holding another context's keys.
+
+    ``s_int`` is the ternary secret (N,) int64; ``evk`` maps each level to
+    its evaluation keys, one ``(b, a)`` pair per digit, each (level+2, N)
+    over the level's primes and the special prime in the NTT domain (the
+    JAX package's ``CkksContext.s_int`` and ``_evk[level][i].b / .a``).
+    Encryptions draw from ``rng`` (a fresh ``default_rng(0xCEC5)`` if
+    None)."""
+    stacked = {}
+    for lvl in range(1, params.levels + 1):
+        pairs = evk[lvl]
+        if len(pairs) != lvl + 1:
+            raise ValueError(f"level {lvl} needs {lvl + 1} digit keys, got "
+                             f"{len(pairs)}")
+        b = np.stack([np.asarray(k[0]) for k in pairs]).astype(np.int64)
+        a = np.stack([np.asarray(k[1]) for k in pairs]).astype(np.int64)
+        if b.shape != (lvl + 1, lvl + 2, params.n_ring) or a.shape != b.shape:
+            raise ValueError(f"level {lvl} keys have shapes {b.shape}, "
+                             f"{a.shape}")
+        stacked[lvl] = (b, a)
+    return CkksContext(params, device=device, rng=rng,
+                       keys=(np.asarray(s_int, dtype=np.int64), stacked))

@@ -3,6 +3,8 @@ Pallas kernels in the JAX package (``repro.kernels``).
 
   garble/   half-gates garbling and evaluation with constant-time
             (lookup-free) fixed-key AES, the §7.3 hot loop
+  ntt/      negacyclic NTT (forward and inverse) and modular products over
+            RNS primes below 2^31, the CKKS hot loop
 
 Each subpackage: ``csrc/`` (CUDA C++ for ``sm_90a``), ``kernel.py`` (the
 ``ctypes`` binding, built from the sources on first use by ``_build``),

@@ -1,1 +1,2 @@
-"""Protocol drivers of the port: ``garbled`` (two-party half gates)."""
+"""Protocol drivers of the port: ``garbled`` (two-party half gates) and
+``ckks`` (RNS CKKS)."""

@@ -1,3 +1,5 @@
-from .base import GC_PAGE_SHIFT, REGISTRY, Workload, get, register
+from .base import (CKKS_PAGE_SHIFT, GC_PAGE_SHIFT, REGISTRY, Workload, get,
+                   register)
 
-__all__ = ["GC_PAGE_SHIFT", "REGISTRY", "Workload", "get", "register"]
+__all__ = ["CKKS_PAGE_SHIFT", "GC_PAGE_SHIFT", "REGISTRY", "Workload", "get",
+           "register"]

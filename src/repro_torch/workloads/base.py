@@ -3,10 +3,13 @@
 Each workload packages (1) a DSL program parameterized by ProgramOptions,
 (2) deterministic synthetic inputs, (3) a numpy oracle for its outputs, and
 (4) protocol/page-size defaults matching the paper (GC: 64 KiB pages = 4096
-wires).  Inputs are materialized first, then the computation runs, then
-outputs are written (§8.1.3), so memory pressure is real.
+wires; CKKS: 128 KiB pages of 8-byte words).  Inputs are materialized
+first, then the computation runs, then outputs are written (§8.1.3), so
+memory pressure is real.
 
-Only ``merge`` is registered in this slice of the port.
+Registered so far: ``merge`` and the five CKKS workloads.  A CKKS
+workload's ``inputs`` and ``oracle`` also take ``ckks_params``, the
+parameters the job runs at.
 """
 
 from __future__ import annotations
@@ -20,12 +23,13 @@ from ..core.bytecode import Program
 from ..core.workers import ProgramOptions, trace_workers
 
 GC_PAGE_SHIFT = 12    # 4096 wires * 16 B = 64 KiB, the paper's GC page size
+CKKS_PAGE_SHIFT = 14  # 16384 words = 128 KiB pages (scaled with our N)
 
 
 @dataclasses.dataclass
 class Workload:
     name: str
-    protocol: str                      # 'gc'
+    protocol: str                      # 'gc' | 'ckks'
     build: Callable[[ProgramOptions], None]
     inputs: Callable[[int, int, int], Callable[[int], np.ndarray]]
     # (problem_size, worker, num_workers) -> provider(tag)
@@ -52,7 +56,7 @@ def register(w: Workload) -> Workload:
 
 
 def get(name: str) -> Workload:
-    from . import gc_workloads  # noqa: F401  (registers the workloads)
+    from . import ckks_workloads, gc_workloads  # noqa: F401  (register)
     try:
         return REGISTRY[name]
     except KeyError:
