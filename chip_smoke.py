@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-It drives the port's two paths: the planned two-party garbled merge (GC)
-and the planned CKKS jobs.  Phases, each raising on failure:
+It drives the port's three paths: the planned two-party garbled merge
+(GC), the planned CKKS jobs and serving qwen2-1.5b with the paged decode.
+TF32 stays off for the whole run: the plain versions' float32 products run
+in full float32.  Phases, each raising on failure:
 
 1. device        the card's name and power limit (nvidia-smi);
-2. build         the half-gates and the NTT CUDA libraries from the
-                 sources in the checkout (ptxas' registers and spills);
+2. build         the half-gates, the NTT and the paged-attention CUDA
+                 libraries from the sources in the checkout, one nvcc each,
+                 all at once (ptxas' registers and spills);
 3. kernels       each half-gates kernel against its plain PyTorch version
                  on the card, bit for bit, at the main path's launch sizes
                  and beyond, gate ids up to 2^40, all four truth-table
@@ -36,8 +39,27 @@ and the planned CKKS jobs.  Phases, each raising on failure:
 9. record        each kernel timed at its main path's launch sizes, beside
                  its bound, its plain version and (the product) the
                  PyTorch expression; the NTT kernels also at 4096 rows;
-10. profile      the GC path's shape at n=1024 and the CKKS main job under
-                 torch.profiler: device time by op, and the busy share.
+10. profile      the GC path's shape at n=512 and the CKKS main job under
+                 torch.profiler: device time by op, and the busy share;
+11. attn kernels the paged-attention kernel against its plain version on
+                 the card (rtol 1e-4, atol 1e-5), f32 and bf16 pages: the
+                 JAX package's test shapes, qwen2's head shape at batch 1
+                 and 8 (ragged lengths, permuted pages, -1 tails), and
+                 batch 8 at lengths up to 32768 tokens in bf16;
+12. serve parity reduced qwen2 in f32 with nonzero biases served on the
+                 card equals the same run with device="cpu": greedy tokens,
+                 and teacher-forced logits within relative 1e-4, for the
+                 paged and the contiguous decode;
+13. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
+                 run_server with the paged decode: 4 requests of 200-token
+                 prompts, 64 new tokens each, every decode attention through
+                 the kernel (252 steps x 28 layers launches), held against
+                 the contiguous decode teacher-forced on its tokens;
+14. attn record  the kernel timed at the main path's lengths and at the
+                 32768-token batch beside its bound, its plain version and
+                 gather + scaled_dot_product_attention;
+15. serve profile a few decode steps of the serve main job under
+                 torch.profiler: device time by op and the busy share.
 
 The last four lines are a JSON summary of the run's headline numbers, the
 card's name and power limit, the kernels' JSON record and
@@ -46,6 +68,8 @@ card's name and power limit, the kernels' JSON record and
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -58,13 +82,21 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.api import JobSpec, Session  # noqa: E402
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.kernels.garble import kernel as gk, ops, ref  # noqa: E402
 from repro_torch.kernels.ntt import kernel as nk  # noqa: E402
 from repro_torch.kernels.ntt import ops as nops, ref as nref  # noqa: E402
+from repro_torch.kernels.paged_attn import kernel as pk  # noqa: E402
+from repro_torch.kernels.paged_attn import ops as pops  # noqa: E402
+from repro_torch.kernels.paged_attn import ref as pref  # noqa: E402
+from repro_torch.launch.serve import paged_cache, run_server  # noqa: E402
+from repro_torch.models import init_lm, lm_decode, lm_prefill  # noqa: E402
 from repro_torch.protocols.ckks.driver import homomorphic_ops  # noqa: E402
 from repro_torch.protocols.ckks.params import CkksParams  # noqa: E402
+from repro_torch.serve.serve_step import Request, serve_step  # noqa: E402
 
 #: H100 SXM peaks: HBM3 bandwidth (NVIDIA data sheet), and 32-bit
 #: three-input logic operations (LOP3) per second: 64 per SM per clock (CUDA
@@ -96,12 +128,19 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    for lib in (gk, nk):
-        t0 = time.perf_counter()
-        lib.library()
+    """One nvcc per library, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    libs = (gk, nk, pk)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib.library) for lib in libs]:
+            f.result()
+    log(f"build: {time.perf_counter() - t0:.2f} s for {len(libs)} "
+        f"libraries in parallel")
+    for lib in libs:
         info = lib.build_info()
-        log(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
-            f"{info.seconds:.2f} s) -> {os.path.relpath(info.path, ROOT)}")
+        log(f"build: nvcc {info.seconds:.2f} s -> "
+            f"{os.path.relpath(info.path, ROOT)}")
         for line in info.log.splitlines():
             if "Compiling entry" in line:
                 log(f"  ptxas: {line.strip().split('function ')[-1]}")
@@ -253,10 +292,10 @@ MAIN = dict(n=16384, memory_budget=0.4, lookahead=10_000, prefetch_pages=64)
 PARITY = dict(n=256, memory_budget=0.4, lookahead=10_000, prefetch_pages=8)
 #: no prefetch buffer: the plan keeps synchronous SWAP_IN / SWAP_OUT
 SYNC_SWAPS = dict(PARITY, memory_budget=12, prefetch_pages=0)
-#: the main path's shape at a sixteenth of its size, run under the profiler:
-#: 0.4 of its working set of 66 pages as a frame count (a fractional budget
-#: would be raised to the floor of 8 + prefetch frames, above the working set)
-PROFILED = dict(n=1024, memory_budget=26, lookahead=10_000, prefetch_pages=6)
+#: the main path's shape at a thirty-second of its size, run under the
+#: profiler (whose trace processing grows with the launches): 0.4 of its
+#: working set as a frame count, 14 frames of which 3 prefetch
+PROFILED = dict(n=512, memory_budget=14, lookahead=10_000, prefetch_pages=3)
 
 
 def _run(job: dict, device, digest: bool = False):
@@ -742,12 +781,421 @@ def phase_ckks_profile(dev) -> dict:
         top.append([e.key[:60], _dev_us(e) / 1e3, e.count])
     return {"execute_ms": wall_ms, "busy_ms": busy_ms, "top": top}
 
+# ---------------------------------------------------------------------------
+# the serving path: paged-attention kernel, parity, main job, record, profile
+# ---------------------------------------------------------------------------
+
+#: qwen2-1.5b at full width (src/repro_torch/configs/qwen2_1_5b.py)
+QWEN2 = get_config("qwen2-1.5b")
+#: tokens per KV page: PagedKVConfig's default
+PAGE = 64
+#: the serve main job: 4 requests of 200 prompt tokens, 64 new tokens each;
+#: max_seq = prompt + max_new + 1 as the launcher sets it (5 pages, the last
+#: ragged); the launcher's batch size 2
+SERVE_MAIN = dict(n_req=4, prompt=200, max_new=64, max_seq=265, batch=2)
+#: small enough for the CPU, two pages with the last ragged
+SERVE_PARITY = dict(n_req=3, prompt=70, max_new=8, max_seq=79, batch=2)
+#: the repo's decode_32k context (configs SHAPES) at batch 8
+LONG_BATCH, LONG_LEN = 8, 32768
+#: the kernel against its plain version: both take the same values up to
+#: float32 and compute in float32, so the f32 tolerance holds for bf16 pages
+ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5
+#: paged decode against the contiguous decode: the reference's own bound
+#: between its prefill and its forward (tests/test_models.py)
+SERVE_REL = 3e-2
+#: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12
+ATTN_KERNEL = "paged_attn_kernel"
+
+
+def _attn_inputs(seed: int, batch: int, qh: int, kvh: int, hd: int,
+                 psz: int, mp: int, dtype, dev, lens=None,
+                 tails: bool = True):
+    """q on the card, K/V pages drawn on the card, permuted block tables
+    (-1 past each sequence's pages when ``tails``) and lengths on the host,
+    as the wrapper takes them."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    num_pages = batch * mp + 2
+    q = torch.randn((batch, qh, hd), generator=gen, device=dev)
+    kp = torch.randn((num_pages, psz, kvh, hd), generator=gen,
+                     device=dev).to(dtype)
+    vp = torch.randn((num_pages, psz, kvh, hd), generator=gen,
+                     device=dev).to(dtype)
+    sl = np.asarray(lens if lens is not None else
+                    rng.integers(1, mp * psz + 1, batch), dtype=np.int32)
+    bt = rng.permutation(num_pages)[:batch * mp].reshape(batch, mp) \
+        .astype(np.int32)
+    if tails:
+        bt[np.arange(mp)[None, :] >= -(-sl[:, None] // psz)] = -1
+    return q, kp, vp, bt, sl
+
+
+def _attn_plain(q, kp, vp, bt, sl):
+    return pref.paged_decode_attention(
+        q, kp, vp, torch.from_numpy(bt).to(q.device),
+        torch.from_numpy(sl).to(q.device))
+
+
+def _attn_check(x, what: str) -> float:
+    """The kernel against its plain version on the same inputs; returns
+    max |kernel - plain|."""
+    got = pops.paged_decode_attention(*x)
+    want = _attn_plain(*x)
+    torch.cuda.synchronize()
+    bad = (got - want).abs() > ATTN_ATOL + ATTN_RTOL * want.abs()
+    err = float((got - want).abs().max())
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"paged attention != plain at {what}: "
+                             f"max_abs_err {err}")
+    return err
+
+
+def phase_attn_kernels(dev) -> float:
+    """The paged-attention kernel against its plain version; returns the
+    max_abs_err over the comparisons."""
+    err, cases = 0.0, 0
+    sweep = [(2, 8, 2, 64, 16, 4), (3, 4, 4, 32, 8, 3),
+             (1, 16, 8, 128, 32, 2), (4, 2, 1, 64, 8, 5)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, shape in enumerate(sweep):
+            for tails in (False, True):
+                err = max(err, _attn_check(
+                    _attn_inputs(i, *shape, dtype, dev, tails=tails),
+                    f"{shape} {dtype} tails={tails}"))
+                cases += 1
+        for batch in (1, 8):      # qwen2's heads, ragged, permuted, tails
+            shape = (batch, QWEN2.n_heads, QWEN2.n_kv_heads, QWEN2.head_dim,
+                     PAGE, 5)
+            err = max(err, _attn_check(_attn_inputs(10 + batch, *shape,
+                                                    dtype, dev),
+                                       f"qwen2 {shape} {dtype}"))
+            cases += 1
+        # a single query ending mid-page (tests/test_kernels.py)
+        err = max(err, _attn_check(_attn_inputs(7, 1, 4, 2, 32, 8, 2, dtype,
+                                                dev, lens=[3]),
+                                   f"single query {dtype}"))
+        cases += 1
+    # full pages in bf16 (tests/test_kernels.py's bf16 case)
+    err = max(err, _attn_check(_attn_inputs(0, 2, 4, 2, 64, 16, 3,
+                                            torch.bfloat16, dev,
+                                            lens=[48, 48]), "bf16 full"))
+    lens = np.random.default_rng(32).integers(1, LONG_LEN + 1, LONG_BATCH)
+    lens[0] = LONG_LEN
+    err = max(err, _attn_check(
+        _attn_inputs(32, LONG_BATCH, QWEN2.n_heads, QWEN2.n_kv_heads,
+                     QWEN2.head_dim, PAGE, LONG_LEN // PAGE, torch.bfloat16,
+                     dev, lens=lens), f"batch 8 up to {LONG_LEN} tokens"))
+    cases += 2
+    log(f"attn kernels: paged_decode_attention equals its plain version "
+        f"within rtol {ATTN_RTOL} / atol {ATTN_ATOL} in {cases} cases (f32 "
+        f"and bf16 pages: the JAX package's shapes, full and with -1 tails; "
+        f"qwen2's heads at batch 1 and 8; a single ragged query; batch "
+        f"{LONG_BATCH} at lengths {sorted(lens.tolist())} in bf16); "
+        f"max_abs_err {err:.3e}")
+    return err
+
+
+def _prompts(seed: int, cfg, job: dict) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, job["prompt"])
+            for _ in range(job["n_req"])]
+
+
+def _serve(model, cfg, prompts, job: dict, paged: bool):
+    reqs = [Request(i, p, max_new=job["max_new"])
+            for i, p in enumerate(prompts)]
+    st = run_server(cfg, reqs, job["batch"], job["max_seq"], paged=paged,
+                    params=model)
+    return [r.output for r in reqs], st
+
+
+def _forced_logits(model, cfg, prompt, tokens, paged: bool,
+                   max_seq: int) -> torch.Tensor:
+    """(len(tokens), vocab) logits of the prefill and of each decode step
+    fed ``tokens`` (teacher forcing), through the paged or the contiguous
+    decode."""
+    dev = model.device
+    with torch.inference_mode():
+        toks = torch.as_tensor(np.asarray(prompt), device=dev)[None]
+        plen = toks.shape[1]
+        logits, caches = lm_prefill(model, toks, cfg,
+                                    plen if paged else max_seq)
+        rows = [logits[0, -1]]
+        if paged:
+            caches, clen = paged_cache(cfg, caches, max_seq), None
+        else:
+            clen = torch.tensor([plen], device=dev)
+        for t in tokens[:-1]:
+            logits, caches = lm_decode(
+                model, torch.tensor([[t]], device=dev), caches, clen, cfg)
+            if clen is not None:
+                clen = clen + 1
+            rows.append(logits[0, -1])
+    return torch.stack(rows)
+
+
+def _rel_per_step(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """max |a - b| / max |b| of every row."""
+    return (a - b).abs().amax(-1) / b.abs().amax(-1).clamp(min=1e-6)
+
+
+def phase_serve_parity(dev) -> dict:
+    """Reduced qwen2 in f32 with nonzero biases, on the card and on the
+    CPU: equal greedy tokens, teacher-forced logits within relative 1e-4
+    (both sides in full f32), for the paged and the contiguous decode."""
+    cfg = dataclasses.replace(reduced_config("qwen2-1.5b"), dtype="float32")
+    cpu_model = init_lm(cfg, 0, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    for blk in cpu_model.blocks:
+        for name in ("q_bias", "k_bias", "v_bias"):
+            b = getattr(blk.attn, name)
+            b.copy_(torch.randn(b.shape, generator=gen) * 0.5)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    prompts = _prompts(3, cfg, SERVE_PARITY)
+    out = {}
+    for paged in (True, False):
+        t0 = time.perf_counter()
+        want, _ = _serve(cpu_model, cfg, prompts, SERVE_PARITY, paged)
+        t_cpu = time.perf_counter() - t0
+        pops.reset_counts()
+        t0 = time.perf_counter()
+        got, _ = _serve(card_model, cfg, prompts, SERVE_PARITY, paged)
+        t_card = time.perf_counter() - t0
+        c = pops.counts()
+        steps = SERVE_PARITY["n_req"] * (SERVE_PARITY["max_new"] - 1)
+        if c["launches"] != (steps * cfg.n_layers if paged else 0) or \
+                c["plain_calls"]:
+            raise AssertionError(f"serve parity paged={paged}: counts {c}")
+        if got != want:
+            raise AssertionError(f"serve parity paged={paged}: card tokens "
+                                 f"{got} != CPU tokens {want}")
+        worst = 0.0
+        for p, toks in zip(prompts, want):
+            lc = _forced_logits(cpu_model, cfg, p, toks, paged,
+                                SERVE_PARITY["max_seq"])
+            lg = _forced_logits(card_model, cfg, p, toks, paged,
+                                SERVE_PARITY["max_seq"]).cpu()
+            worst = max(worst, float(_rel_per_step(lg, lc).max()))
+        if worst >= 1e-4:
+            raise AssertionError(f"serve parity paged={paged}: logits differ"
+                                 f" by relative {worst}")
+        kind = "paged" if paged else "contiguous"
+        log(f"serve parity ({kind}): reduced qwen2 f32, {len(prompts)} "
+            f"requests x {SERVE_PARITY['max_new']} tokens, on the card "
+            f"({t_card:.2f} s) == on the CPU ({t_cpu:.2f} s): greedy tokens "
+            f"equal, teacher-forced logits within relative {worst:.3e} "
+            f"(limit 1e-4); kernel launches {c['launches']}")
+        out[kind] = {"card_s": t_card, "cpu_s": t_cpu, "max_rel": worst}
+    return out
+
+
+def phase_serve_main(dev) -> tuple[dict, dict, object]:
+    """qwen2-1.5b at full width through run_server with the paged decode;
+    returns the kernel's counts from that run, its metrics and the model."""
+    cfg = QWEN2
+    job = SERVE_MAIN
+    t0 = time.perf_counter()
+    model = init_lm(cfg, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    prompts = _prompts(0, cfg, job)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pops.reset_counts()
+    toks_p, st = _serve(model, cfg, prompts, job, paged=True)
+    counts = pops.counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = job["n_req"] * (job["max_new"] - 1)
+    if st.decode_tokens != steps or \
+            counts["launches"] != steps * cfg.n_layers or \
+            counts["plain_calls"]:
+        raise AssertionError(f"serve main: {st.decode_tokens} decode steps, "
+                             f"kernel counts {counts}; expected {steps} x "
+                             f"{cfg.n_layers} launches")
+    if any(len(t) != job["max_new"] or min(t) < 0 or
+           max(t) >= cfg.vocab_size for t in toks_p):
+        raise AssertionError("serve main: malformed outputs")
+    toks_c, st_c = _serve(model, cfg, prompts, job, paged=False)
+    agree = sum(a == b for tp, tc in zip(toks_p, toks_c)
+                for a, b in zip(tp, tc)) / (job["n_req"] * job["max_new"])
+    worst, same_p, same_c = 0.0, 0, 0
+    for p, toks in zip(prompts, toks_p):
+        lp = _forced_logits(model, cfg, p, toks, True, job["max_seq"])
+        lc = _forced_logits(model, cfg, p, toks, False, job["max_seq"])
+        if not bool(torch.isfinite(lp).all() and torch.isfinite(lc).all()):
+            raise AssertionError("serve main: non-finite logits")
+        worst = max(worst, float(_rel_per_step(lp, lc).max()))
+        want = torch.tensor(toks, device=dev)
+        same_p += int((lp.argmax(-1) == want).sum())
+        same_c += int((lc.argmax(-1) == want).sum())
+    if worst >= SERVE_REL:
+        raise AssertionError(f"serve main: paged logits differ from the "
+                             f"contiguous decode's by relative {worst}")
+    n_tok = job["n_req"] * job["max_new"]
+    m = {"arch": cfg.name, "n_req": job["n_req"], "prompt": job["prompt"],
+         "max_new": job["max_new"], "max_seq": job["max_seq"],
+         "init_s": init_s, "weight_bytes": weight_bytes,
+         "prefill_tokens": st.prefill_tokens, "prefill_s": st.prefill_s,
+         "prefill_tokens_per_s": st.prefill_tokens / st.prefill_s,
+         "decode_tokens": st.decode_tokens, "decode_s": st.decode_s,
+         "decode_tokens_per_s": st.decode_tokens / st.decode_s,
+         "ms_per_decode_step": st.decode_s / st.decode_tokens * 1e3,
+         "contiguous_decode_s": st_c.decode_s,
+         "contiguous_ms_per_decode_step":
+             st_c.decode_s / st_c.decode_tokens * 1e3,
+         "max_memory_allocated": peak, "launches": counts["launches"],
+         "kv_tokens_read": counts["tokens"], "max_rel_vs_contiguous": worst,
+         "greedy_agreement_untied": agree,
+         "forced_paged_argmax_matches_run": same_p / n_tok,
+         "forced_contiguous_argmax_matches_run": same_c / n_tok,
+         "kv_plan": st.kv_plan}
+    log(f"serve main: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"vocab {cfg.vocab_size}), bf16, seeded weights ({weight_bytes} "
+        f"bytes, built on the card in {init_s:.2f} s); {job['n_req']} "
+        f"requests of {job['prompt']} tokens, {job['max_new']} new each, "
+        f"paged decode, page {PAGE}")
+    log(f"  prefill {st.prefill_tokens} tokens in {st.prefill_s:.3f} s "
+        f"({m['prefill_tokens_per_s']:.1f} tokens/s); decode "
+        f"{st.decode_tokens} steps in {st.decode_s:.3f} s "
+        f"({m['decode_tokens_per_s']:.2f} tokens/s, "
+        f"{m['ms_per_decode_step']:.3f} ms per step; contiguous decode "
+        f"{m['contiguous_ms_per_decode_step']:.3f} ms per step)")
+    log(f"  kernel launches {counts['launches']} (== {steps} steps x "
+        f"{cfg.n_layers} layers), KV tokens read {counts['tokens']}, "
+        f"max_memory_allocated {peak} bytes")
+    log(f"  against the contiguous decode teacher-forced on the paged run's "
+        f"tokens: max relative logit difference {worst:.3e} (limit "
+        f"{SERVE_REL}); forced argmax reproduces the paged run on "
+        f"{same_p}/{n_tok} tokens (paged) and {same_c}/{n_tok} "
+        f"(contiguous); untied greedy runs agree on {agree:.4f} of tokens")
+    return counts, m, model
+
+
+def _attn_timing(lens, dev, reps: int) -> dict:
+    """The kernel, its plain version and gather + SDPA on qwen2's heads
+    in bf16 at ``lens``; the bound from this input's work."""
+    batch = len(lens)
+    mp = -(-max(lens) // PAGE)
+    qh, kvh, hd = QWEN2.n_heads, QWEN2.n_kv_heads, QWEN2.head_dim
+    x = _attn_inputs(sum(lens), batch, qh, kvh, hd, PAGE, mp,
+                     torch.bfloat16, dev, lens=lens)
+    q, kp, vp, bt, sl = x
+    err = _attn_check(x, f"lengths {list(lens)}")
+    bt_d = torch.from_numpy(bt).to(dev).long().clamp(min=0)
+    sl_d = torch.from_numpy(sl).to(dev)
+    span = mp * PAGE
+    mask = (torch.arange(span, device=dev)[None, :] < sl_d[:, None])[
+        :, None, None, :]
+    q4 = q.to(torch.bfloat16).view(batch, qh, 1, hd)
+
+    def library():   # two calls: the gather, then SDPA
+        k = kp[bt_d].view(batch, span, kvh, hd).transpose(1, 2)
+        v = vp[bt_d].view(batch, span, kvh, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    lib_err = float((library().float().view(batch, qh, hd)
+                     - _attn_plain(*x)).abs().max())
+    if lib_err > 2e-2:
+        raise AssertionError(f"gather + SDPA differs from the plain version "
+                             f"by {lib_err}")
+    kfn = lambda: pops.paged_decode_attention(*x)  # noqa: E731
+    pfn = lambda: _attn_plain(*x)  # noqa: E731
+    ms = _kernel_ms(kfn, ATTN_KERNEL, reps) or _device_ms(kfn, reps)
+    nbytes = pk.work_bytes(sl, kvh, qh // kvh, hd, PAGE, 2)
+    flops = pk.work_flops(sl, kvh, qh // kvh, hd)
+    return {"ms": ms, "plain_ms": _device_ms(pfn, max(reps // 10, 3)),
+            "library_ms": _device_ms(library, max(reps // 10, 3)),
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": flops / F32_FLOPS_PER_S * 1e3, "err": err}
+
+
+def attn_record(dev, counts: dict, err: float) -> tuple[dict, dict]:
+    """The kernel at every length of the serve main path, launch-weighted,
+    and at the 32768-token batch."""
+    sizes = counts["launch_sizes"]
+    total = sum(sizes.values())
+    acc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
+           "ops_ms": 0.0}
+    for lens, k in sizes.items():
+        one = _attn_timing(list(lens), dev, 50)
+        err = max(err, one["err"])
+        for key in acc:
+            acc[key] += k / total * one[key]
+    bound = max(acc["bytes_ms"], acc["ops_ms"])
+    by = "bytes" if acc["bytes_ms"] >= acc["ops_ms"] else "operations"
+    row = {"name": "paged_decode_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/paged_attn/csrc/paged_attn.cu",
+           "replaces": "src/repro/kernels/paged_attn/kernel.py:29",
+           "launches": counts["launches"], "max_abs_err": err,
+           "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": bound,
+           "bound_by": by, "library_ms": acc["library_ms"]}
+    lens = np.random.default_rng(32).integers(1, LONG_LEN + 1, LONG_BATCH)
+    lens[0] = LONG_LEN
+    big = _attn_timing(lens.tolist(), dev, 10)
+    row["max_abs_err"] = max(err, big["err"])
+    b_big = max(big["bytes_ms"], big["ops_ms"])
+    log(f"  paged_decode_attention over the serve main path's "
+        f"{len(sizes)} lengths ({min(sizes)[0]}..{max(sizes)[0]} tokens, "
+        f"batch 1, bf16): {acc['ms']:.5f} ms per launch (bound "
+        f"{bound:.3e} ms by {by}, {bound / acc['ms']:.3g} of it; plain "
+        f"{acc['plain_ms']:.4f} ms; gather + SDPA, two calls, "
+        f"{acc['library_ms']:.4f} ms)")
+    log(f"  paged_decode_attention at batch {LONG_BATCH}, lengths up to "
+        f"{LONG_LEN} ({int(lens.sum())} tokens): {big['ms']:.4f} ms (bound "
+        f"{b_big:.4f} ms by bytes, {b_big / big['ms']:.3g} of it; plain "
+        f"{big['plain_ms']:.3f} ms; gather + SDPA {big['library_ms']:.3f} "
+        f"ms)")
+    return row, {k: big[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bytes_ms", "ops_ms")}
+
+
+def phase_serve_profile(dev, model) -> dict:
+    """Eight decode steps of the serve main job (paged, after its 200-token
+    prefill and two warm-up steps) under torch.profiler: device time by op
+    and the busy share of their wall time (a lower bound on the unprofiled
+    run's, since the profiler slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, job = QWEN2, SERVE_MAIN
+    prompt = _prompts(0, cfg, job)[0]
+    with torch.inference_mode():
+        toks = torch.as_tensor(prompt, device=dev)[None]
+        logits, caches = lm_prefill(model, toks, cfg, toks.shape[1])
+        cache = paged_cache(cfg, caches, job["max_seq"])
+        token = logits[:, -1].argmax(-1, keepdim=True)
+        for _ in range(2):
+            token, cache, _ = serve_step(model, token, cache, None, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(8):
+                token, cache, _ = serve_step(model, token, cache, None, cfg)
+                int(token[0, 0])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = sorted(prof.key_averages(), key=_dev_us, reverse=True)
+    busy_ms = sum(_dev_us(e) for e in evs) / 1e3
+    log(f"serve profile: 8 paged decode steps of {cfg.name}, {wall_ms:.1f} "
+        f"ms under the profiler ({wall_ms / 8:.2f} ms per step), device "
+        f"busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.3f} of it; idle share "
+        f"{1 - busy_ms / wall_ms:.3f})")
+    top = []
+    for e in evs[:12]:
+        log(f"  {_dev_us(e) / 1e3:10.3f} ms  {e.count:8d}x  {e.key[:70]}")
+        top.append([e.key[:60], _dev_us(e) / 1e3, e.count])
+    return {"steps": 8, "wall_ms": wall_ms, "busy_ms": busy_ms, "top": top}
+
 
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
+    # the plain versions' float32 products must run in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phases = {}
 
     def timed(name, fn, *args):
@@ -761,24 +1209,33 @@ def main() -> None:
     timed("build", phase_build)
     errs, big = timed("kernels", phase_kernels, dev)
     ntt_errs = timed("ntt kernels", phase_ntt_kernels, dev)
+    attn_err = timed("attn kernels", phase_attn_kernels, dev)
     parity = timed("parity", phase_parity, dev)
     ckks_parity = timed("ckks parity", phase_ckks_parity, dev)
+    serve_parity = timed("serve parity", phase_serve_parity, dev)
     counts, metrics = timed("main", phase_main, dev)
     ntt_counts, ckks_metrics = timed("ckks main", phase_ckks_main, dev)
+    attn_counts, serve_metrics, model = timed("serve main", phase_serve_main,
+                                              dev)
     rows = timed("record", kernel_record, dev, counts, errs)
     ntt_rows, ntt_big = timed("ntt record", ntt_record, dev, ntt_counts,
                               ntt_errs)
+    attn_row, attn_long = timed("attn record", attn_record, dev, attn_counts,
+                                attn_err)
     profiled = timed("profile", phase_profile, dev)
     ckks_profiled = timed("ckks profile", phase_ckks_profile, dev)
+    serve_profiled = timed("serve profile", phase_serve_profile, dev, model)
     # the run's headline numbers, kept near the end of the output
     log("summary: " + json.dumps({
         "main": metrics, "m=2^20": big, "parity": parity,
         "profile": profiled, "ckks_main": ckks_metrics,
         "ntt_4096_rows": ntt_big, "ckks_parity": ckks_parity,
-        "ckks_profile": ckks_profiled, "phases_s": phases,
+        "ckks_profile": ckks_profiled, "serve_main": serve_metrics,
+        "serve_parity": serve_parity, "attn_long": attn_long,
+        "serve_profile": serve_profiled, "phases_s": phases,
         "total_s": time.perf_counter() - t_all}))
     print(smi, flush=True)
-    print(json.dumps({"kernels": rows + ntt_rows}), flush=True)
+    print(json.dumps({"kernels": rows + ntt_rows + [attn_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,15 +3,22 @@
 
 Same layout and names as the JAX package, so each module's counterpart is
 easy to find; the port imports neither JAX nor anything of ``repro``.
-This slice runs a planned two-party garbled-circuit job end to end on one
-card: trace → plan (MIN replacement + scheduled prefetching swaps) →
-execute, with the engine's frames in device memory, swap storage in
-pinned host memory, and every AND gate through the hand-written half-gates
-kernels (``kernels/garble``).
+It runs planned secure-computation jobs end to end on one card: trace →
+plan (MIN replacement + scheduled prefetching swaps) → execute, with the
+engine's frames in device memory, swap storage in pinned host memory, and
+every AND gate (garbled circuits) or NTT and modular product (CKKS)
+through hand-written kernels (``kernels/garble``, ``kernels/ntt``).
 
     from repro_torch import JobSpec, Session
     spec = JobSpec("merge", n=16384, memory_budget=0.4, prefetch_pages=64)
     Session(spec).execute(real=True, check=True)   # device="cpu" for tests
+
+It also serves dense language models (``models``, ``serve``,
+``launch.serve``): prefill and greedy decode, with ``--paged`` decode
+attention through the paged-attention kernel (``kernels/paged_attn``)
+over a paged KV cache.
+
+    python -m repro_torch.launch.serve --arch qwen2-1.5b --paged
 """
 
 from .api import JobSpec, Session

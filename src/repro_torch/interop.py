@@ -5,8 +5,9 @@ both packages share (``core.bytecode``: same opcodes, same layout) plus a
 header of the program's fields, so neither side imports the other: the
 JAX package's ``encode_chunk(program.instrs)`` produces ``rec``.
 
-A CKKS context crosses as its keys, NumPy arrays (``ckks_context_from_keys``):
-the counterpart of carrying a model's weights across.  The garbler's state
+A CKKS context crosses as its keys, NumPy arrays (``ckks_context_from_keys``),
+and a language model as its parameter tree, NumPy arrays
+(``lm_params_from_jax``).  The garbler's state
 needs no converter: R and every fresh label come from
 ``numpy.random.default_rng(seed)`` in the same order in both packages, as
 do a CKKS context's keys when both are built from one seed.
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from .core.bytecode import Program, decode_chunk
+from .models.config import ModelConfig
 from .protocols.ckks.cipher import CkksContext
 from .protocols.ckks.params import CkksParams
 
@@ -74,3 +76,37 @@ def ckks_context_from_keys(
         stacked[lvl] = (b, a)
     return CkksContext(params, device=device, rng=rng,
                        keys=(np.asarray(s_int, dtype=np.int64), stacked))
+
+
+def _tensor(x) -> torch.Tensor:
+    """A NumPy array (or anything ``np.asarray`` takes) -> a CPU tensor of
+    the same type, bit for bit.  NumPy has no bfloat16: the JAX package's
+    bf16 arrays come out as ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses, so they cross as their uint16 bits."""
+    a = np.array(x, order="C")       # a copy the tensor may own
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_jax(params: dict, cfg: ModelConfig) -> dict:
+    """The JAX package's ``init_lm`` parameter tree (leaves as arrays) ->
+    the port's ``LM`` state dict.  The dense layout scan-stacks every layer
+    in ``params["groups"][0]`` with a leading layer axis
+    (``lm._stack_init``); it is split into ``blocks.<i>``."""
+    if len(params["groups"]) != 1:
+        raise ValueError(f"{cfg.name}: expected the dense layout's one scan "
+                         f"group, got {len(params['groups'])}")
+    out = {"embed.embed": _tensor(params["embed"]["embed"]),
+           "final_norm.scale": _tensor(params["final_norm"]["scale"])}
+    if "lm_head" in params["embed"]:
+        out["embed.lm_head"] = _tensor(params["embed"]["lm_head"])
+    for mod, leaves in params["groups"][0].items():
+        for name, stacked in leaves.items():
+            t = _tensor(stacked)
+            if t.shape[0] != cfg.n_layers:
+                raise ValueError(f"{mod}.{name} stacks {t.shape[0]} layers, "
+                                 f"the config has {cfg.n_layers}")
+            for i in range(cfg.n_layers):
+                out[f"blocks.{i}.{mod}.{name}"] = t[i].clone()
+    return out

@@ -5,6 +5,9 @@ Pallas kernels in the JAX package (``repro.kernels``).
             (lookup-free) fixed-key AES, the §7.3 hot loop
   ntt/      negacyclic NTT (forward and inverse) and modular products over
             RNS primes below 2^31, the CKKS hot loop
+  paged_attn/  GQA flash-decoding over a paged KV cache's block table:
+            decode attention of the serving path (``serve``,
+            ``launch.serve --paged``)
 
 Each subpackage: ``csrc/`` (CUDA C++ for ``sm_90a``), ``kernel.py`` (the
 ``ctypes`` binding, built from the sources on first use by ``_build``),

@@ -1,0 +1,253 @@
+"""Core transformer layers: RMSNorm, RoPE, GQA attention (prefill and
+decode against a contiguous or a paged KV cache), SwiGLU MLP, embeddings.
+The port's copy of ``repro.models.layers`` for the dense decoder.
+
+Parameters live in small ``nn.Module``s (:class:`RMSNorm`,
+:class:`Attention`, :class:`MLP`, :class:`Embed`) on an explicit device, in
+the reference's ``(d_in, d_out)`` layout with ``x @ W``; the apply
+functions keep the reference's names and take the module in place of its
+parameter dict.  The reference's sharding constraints are no-ops outside a
+mesh and are dropped.  Not ported: the int8 KV cache and the flash-style
+``_sdpa_chunked`` for prompts of ``CHUNKED_SDPA_THRESHOLD`` tokens or more
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.paged_attn import ops as paged_ops
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _init(gen: torch.Generator, shape, scale: float,
+          dtype: torch.dtype) -> nn.Parameter:
+    """A standard normal draw times ``scale``, made in float32 on the
+    generator's device and cast, as ``layers._init`` does."""
+    w = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32) * scale
+    return nn.Parameter(w.to(dtype), requires_grad=False)
+
+
+def _zeros(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# norm
+# ---------------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, device):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32,
+                                             device=device),
+                                  requires_grad=False)
+
+
+def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p.scale
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    """Float64, as the reference computes them before its float32 cast."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_freqs(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(rope_frequencies(head_dim, theta).astype(
+        np.float32)).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  The
+    split-halves rotation (not interleaved)."""
+    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
+    ang = positions[..., :, None].float() * freqs        # (..., S, hd/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional qkv bias)
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg, gen: torch.Generator):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.head_dim
+        nh, nkv = cfg.n_heads, cfg.n_kv_heads
+        dt = _dtype(cfg)
+        s = d ** -0.5
+        self.wq = _init(gen, (d, nh * hd), s, dt)
+        self.wk = _init(gen, (d, nkv * hd), s, dt)
+        self.wv = _init(gen, (d, nkv * hd), s, dt)
+        self.wo = _init(gen, (nh * hd, d), (nh * hd) ** -0.5, dt)
+        if cfg.qkv_bias:
+            self.q_bias = _zeros((nh * hd,), dt, gen.device)
+            self.k_bias = _zeros((nkv * hd,), dt, gen.device)
+            self.v_bias = _zeros((nkv * hd,), dt, gen.device)
+
+
+def _qkv(p: Attention, x: torch.Tensor, cfg, positions) -> tuple:
+    b, s, _ = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if cfg.qkv_bias:
+        q = q + p.q_bias
+        k = k + p.k_bias
+        v = v + p.v_bias
+    q = apply_rope(q.reshape(b, s, nh, hd), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(b, s, nkv, hd), positions, cfg.rope_theta)
+    return q, k, v.reshape(b, s, nkv, hd)
+
+
+CHUNKED_SDPA_THRESHOLD = 8192   # the reference blocks attention above this
+
+
+def _sdpa(q, k, v, cfg, causal_offset: int | None) -> torch.Tensor:
+    """q: (b, sq, nh, hd); k/v: (b, skv, nkv, hd).  causal_offset = skv - sq
+    for causal masking; None = no mask (full).  The reference's einsum and
+    softmax in float32."""
+    b, sq, nh, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    if sq >= CHUNKED_SDPA_THRESHOLD:
+        raise NotImplementedError(
+            f"prompts of {CHUNKED_SDPA_THRESHOLD} tokens or more need the "
+            f"chunked attention, not ported yet (ROADMAP.md)")
+    group = nh // nkv
+    qg = q.reshape(b, sq, nkv, group, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) * hd ** -0.5
+    if causal_offset is not None:
+        iq = torch.arange(sq, device=q.device)[:, None] + causal_offset
+        ik = torch.arange(skv, device=q.device)[None, :]
+        scores = scores.masked_fill(~(ik <= iq)[None, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, sq, nh * hd).to(q.dtype)
+
+
+def attention_prefill(p: Attention, x: torch.Tensor, cfg, positions=None):
+    """Returns (out, (k, v)) for subsequent decode."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    q, k, v = _qkv(p, x, cfg, positions)
+    return _sdpa(q, k, v, cfg, 0) @ p.wo, (k, v)
+
+
+def attention_decode(p: Attention, x: torch.Tensor, cfg, cache, cache_len):
+    """One new token against a padded KV cache.
+
+    x: (b, 1, d); cache: (k, v) each (b, max_seq, nkv, hd); cache_len (b,)
+    valid entries.  The new token is written at position cache_len in place
+    (the reference returns an updated copy) and attends over positions
+    <= cache_len.  Returns (out, cache)."""
+    b = x.shape[0]
+    q, k_new, v_new = _qkv(p, x, cfg, cache_len[:, None])
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    k_cache, v_cache = cache
+    rows = torch.arange(b, device=x.device)
+    k_cache[rows, cache_len] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, cache_len] = v_new[:, 0].to(v_cache.dtype)
+    skv = k_cache.shape[1]
+    qg = q.reshape(b, 1, nkv, nh // nkv, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k_cache.float()) * hd ** -0.5
+    valid = torch.arange(skv, device=x.device)[None, :] <= cache_len[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache.float())
+    out = out.reshape(b, 1, nh * hd).to(x.dtype) @ p.wo
+    return out, cache
+
+
+def attention_decode_paged(p: Attention, x: torch.Tensor, cfg, cache,
+                           layer: int, step) -> torch.Tensor:
+    """One new token against layer ``layer`` of a paged KV cache
+    (``serve.paged_kv.PagedKVCache``), through the paged-attention kernel.
+
+    ``step`` is the cache's ``AppendStep`` for this decode step: the slot of
+    each sequence's new token, its position (the contiguous path's
+    cache_len) and the tables after the append.  The token's K/V are
+    written into the layer's pages and the kernel attends over the first
+    cache_len + 1 tokens, which is what ``attention_decode`` attends over.
+    Returns out (b, 1, d)."""
+    b = x.shape[0]
+    q, k_new, v_new = _qkv(p, x, cfg, step.positions[:, None])
+    cache.write(layer, step, k_new[:, 0], v_new[:, 0])
+    out = paged_ops.paged_decode_attention(
+        q[:, 0], cache.k_pages[layer], cache.v_pages[layer],
+        step.block_table, step.seq_lens)
+    return out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg, gen: torch.Generator):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        dt = _dtype(cfg)
+        self.w_gate = _init(gen, (d, f), d ** -0.5, dt)
+        self.w_up = _init(gen, (d, f), d ** -0.5, dt)
+        self.w_down = _init(gen, (f, d), f ** -0.5, dt)
+
+
+def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+
+class Embed(nn.Module):
+    def __init__(self, cfg, gen: torch.Generator):
+        super().__init__()
+        dt = _dtype(cfg)
+        self.embed = _init(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt)
+        if not cfg.tie_embeddings:
+            self.lm_head = _init(gen, (cfg.d_model, cfg.vocab_size),
+                                 cfg.d_model ** -0.5, dt)
+
+
+def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
+    return p.embed[tokens]
+
+
+def unembed(p: Embed, x: torch.Tensor) -> torch.Tensor:
+    w = p.lm_head if hasattr(p, "lm_head") else p.embed.T
+    return (x @ w).float()

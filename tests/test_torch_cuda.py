@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (half gates, NTT, modular product) against their
-plain PyTorch versions, on the card, and small jobs on the card against
-their CPU runs.  Kernels have no interpret mode, so these tests skip
+"""The port's CUDA kernels (half gates, NTT, modular product, paged decode
+attention) against their plain PyTorch versions, on the card, and small
+jobs (a GC merge, a CKKS job, a reduced qwen2 served with the paged and the
+contiguous decode) on the card against their CPU runs.  Kernels have no interpret mode, so these tests skip
 without a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -10,11 +11,18 @@ without a card; run them there with
 ones.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.api import JobSpec, Session
+from repro_torch.configs import reduced_config
+from repro_torch.kernels.paged_attn import ops as pops, ref as pref
+from repro_torch.launch.serve import run_server
+from repro_torch.models import init_lm
+from repro_torch.serve.serve_step import Request
 from repro_torch.kernels.garble import ops, ref
 from repro_torch.kernels.ntt import ops as nops
 from repro_torch.protocols.ckks.params import CkksParams
@@ -112,3 +120,69 @@ def test_small_ckks_job_on_card_matches_cpu(card):
     assert got.engine_stats[0].swap_ins > 0
     assert c["rows"] == {k: got.ckks_counts[k] for k in nops.KINDS}
     assert sum(c["plain_calls"].values()) == 0
+
+
+#: (batch, q_heads, kv_heads, head_dim, page_size, max_pages): shapes of
+#: the JAX package's paged-attention tests, then qwen2's head shape
+PAGED = [(2, 8, 2, 64, 16, 4), (3, 4, 4, 32, 8, 3), (1, 16, 8, 128, 32, 2),
+         (4, 2, 1, 64, 8, 5), (3, 12, 2, 128, 64, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PAGED, ids=str)
+def test_paged_attention_matches_plain(card, shape, dtype):
+    """The kernel against its plain version on the same inputs (permuted
+    pages, ragged lengths, -1 block-table tails), both K/V types; f32
+    tolerance, since both sides compute in f32 from the same values."""
+    batch, qh, kvh, hd, psz, mp = shape
+    rng = np.random.default_rng(batch * 100 + qh)
+    num_pages = batch * mp + 2
+    q = torch.from_numpy(rng.normal(0, 1, (batch, qh, hd))).float()
+    kp = torch.from_numpy(rng.normal(0, 1, (num_pages, psz, kvh, hd))
+                          ).to(dtype)
+    vp = torch.from_numpy(rng.normal(0, 1, (num_pages, psz, kvh, hd))
+                          ).to(dtype)
+    sl = rng.integers(1, mp * psz + 1, batch).astype(np.int32)
+    bt = rng.permutation(num_pages)[:batch * mp].reshape(batch, mp) \
+        .astype(np.int32)
+    bt[np.arange(mp)[None, :] >= -(-sl[:, None] // psz)] = -1
+    pops.reset_counts()
+    got = pops.paged_decode_attention(q.to(card), kp.to(card), vp.to(card),
+                                      bt, sl)
+    torch.cuda.synchronize()
+    want = pref.paged_decode_attention(q, kp, vp, torch.from_numpy(bt),
+                                       torch.from_numpy(sl))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    assert pops.counts()["launches"] == 1
+    assert pops.counts()["tokens"] == int(sl.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [True, False])
+def test_reduced_serve_on_card_matches_cpu(card, paged):
+    """Reduced qwen2 in f32 with nonzero biases: the card's greedy tokens
+    equal the CPU run's, every decode attention of the paged run through
+    the kernel."""
+    cfg = dataclasses.replace(reduced_config("qwen2-1.5b"), dtype="float32")
+    model = init_lm(cfg, 0, "cpu")
+    g = torch.Generator().manual_seed(1)
+    for blk in model.blocks:
+        for name in ("q_bias", "k_bias", "v_bias"):
+            b = getattr(blk.attn, name)
+            b.copy_(torch.randn(b.shape, generator=g) * 0.5)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 70) for _ in range(3)]
+
+    def serve(params):
+        reqs = [Request(i, p, max_new=8) for i, p in enumerate(prompts)]
+        run_server(cfg, reqs, 2, 79, paged=paged, params=params)
+        return [r.output for r in reqs]
+
+    want = serve(model)
+    pops.reset_counts()
+    got = serve(model.to(card))
+    assert got == want
+    assert pops.counts()["launches"] == (3 * 7 * cfg.n_layers if paged
+                                         else 0)
+    assert pops.counts()["plain_calls"] == 0
