@@ -11,11 +11,14 @@ in full float32.  Phases, each raising on failure:
 1. device        the card's name and power limit (nvidia-smi);
 2. build         the half-gates, the NTT and the paged-attention CUDA
                  libraries from the sources in the checkout, one nvcc each,
-                 all at once (ptxas' registers and spills);
+                 all at once (ptxas' registers and spills; the half-gates
+                 kernels' SASS counts from cuobjdump);
 3. kernels       each half-gates kernel against its plain PyTorch version
                  on the card, bit for bit, at the main path's launch sizes
                  and beyond, gate ids up to 2^40, all four truth-table
-                 rows; timings;
+                 rows; at 16, 32, 64 and 2^20 gates its device time per
+                 launch (profiler), the host's time per wrapper call
+                 (events), the bound, beside an empty kernel's;
 4. ntt kernels   the NTT forward, inverse and modular-product kernels
                  against their plain versions on the card, bit for bit:
                  N = 1024 at 1, 3, 12 and 4096 rows, each chain prime, the
@@ -38,7 +41,9 @@ in full float32.  Phases, each raising on failure:
                  same width;
 9. record        each kernel timed at its main path's launch sizes, beside
                  its bound, its plain version and (the product) the
-                 PyTorch expression; the NTT kernels also at 4096 rows;
+                 PyTorch expression, the half-gates kernels also with the
+                 host's time per wrapper call and the empty kernel; the
+                 NTT kernels also at 4096 rows;
 10. profile      the GC path's shape at n=512 and the CKKS main job under
                  torch.profiler: device time by op, and the busy share;
 11. attn kernels the paged-attention kernel against its plain version on
@@ -70,8 +75,11 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -127,8 +135,9 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
-    """One nvcc per library, all started together."""
+def phase_build() -> dict:
+    """One nvcc per library, all started together; returns the half-gates
+    kernels' registers (ptxas) and SASS instruction counts."""
     from concurrent.futures import ThreadPoolExecutor
     libs = (gk, nk, pk)
     t0 = time.perf_counter()
@@ -146,6 +155,110 @@ def phase_build() -> None:
                 log(f"  ptxas: {line.strip().split('function ')[-1]}")
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
+    out = gate_code()
+    for name, c in out["sass"].items():
+        log(f"  sass {name}: {c['instructions']} instructions "
+            f"({c['per_thread']} per thread), LOP3 {c['LOP3']}, SHF "
+            f"{c['SHF']}, SHFL {c['SHFL']}, indexed LDC {c['LDC_indexed']}, "
+            f"branches {c['branches']}, loops {c['loops']}, registers "
+            f"{out['registers'].get(name)}")
+    return out
+
+
+@functools.cache
+def gate_code() -> dict:
+    """The half-gates kernels' registers (ptxas, when this process built
+    the library) and SASS counts, read once."""
+    info = gk.build_info()
+    return {"registers": ptxas_registers(info.log),
+            "sass": sass_counts(info.path)}
+
+
+def _clocks() -> str:
+    """The card's SM clock, its maximum, temperature and power draw now:
+    a launch of a few µs runs at whatever clock the card is at."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+
+
+def _log_gate_code() -> None:
+    code = gate_code()
+    for name in ("garble_and_kernel", "eval_and_kernel"):
+        c = code["sass"].get(name, {})
+        log(f"  {name}: {c.get('per_thread')} SASS instructions per thread "
+            f"(each thread one AES pass), {code['registers'].get(name)} "
+            f"registers")
+
+
+def _kernel_name(mangled: str) -> str:
+    """garble_and_kernel from its mangled name."""
+    for name in ("garble_and_kernel", "eval_and_kernel", "empty_kernel"):
+        if name in mangled:
+            return name
+    return mangled
+
+
+def ptxas_registers(build_log: str) -> dict:
+    """Registers per kernel from ``ptxas -v``'s lines."""
+    regs, name = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry" in line:
+            name = _kernel_name(line)
+        elif "Used" in line and "registers" in line and name:
+            regs[name] = int(line.split("Used")[1].split()[0])
+    return regs
+
+
+def sass_counts(lib_path) -> dict:
+    """SASS instructions of each kernel in a built library, from
+    ``cuobjdump -sass``: the count (the padding NOPs and the closing branch
+    to itself left out), LOP3 and SHF (the logic and the rotations),
+    shuffles, constant loads with a register index (a table or round key
+    read by index would show here), branches, and the loops, as
+    [instructions in the body] per backward branch.  ``per_thread`` is the
+    most one thread can issue (the count) where the kernel has no loop,
+    else None.  Empty where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("  sass: no cuobjdump in this toolkit: not measured")
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    line_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)([.A-Z0-9_]*)\s*([^;]*);")
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = {"instructions": 0, "LOP3": 0, "SHF": 0, "SHFL": 0,
+                   "LDC_indexed": 0, "branches": 0, "loops": []}
+            out[_kernel_name(line.split("Function :")[1].strip())] = cur
+            continue
+        mt = line_re.search(line)
+        if cur is None or not mt:
+            continue
+        addr, op, args = int(mt.group(1), 16), mt.group(2), mt.group(4)
+        if op == "NOP":
+            continue
+        if op == "BRA":
+            target = re.search(r"0x([0-9a-f]+)", args)
+            if target and int(target.group(1), 16) == addr:
+                continue                       # the closing self-loop
+            cur["branches"] += 1
+            if target and int(target.group(1), 16) < addr:
+                cur["loops"].append((addr - int(target.group(1), 16)) // 16
+                                    + 1)
+        cur["instructions"] += 1
+        if op in ("LOP3", "SHF", "SHFL"):
+            cur[op] += 1
+        if op in ("LDC", "ULDC") and re.search(
+                r"c\[0x[0-9a-f]+\]\[U?R\d", args):
+            cur["LDC_indexed"] += 1
+    for c in out.values():
+        c["per_thread"] = None if c["loops"] else c["instructions"]
+    return out
 
 
 def _labels(rng: np.random.Generator, m: int, dev) -> torch.Tensor:
@@ -207,10 +320,11 @@ def _kernel_ms(fn, name: str, reps: int) -> float | None:
     return None
 
 
-def phase_kernels(dev) -> tuple[dict, dict]:
+def phase_kernels(dev) -> tuple[dict, dict, dict]:
     """Kernels against their plain versions, bit for bit, then each one's
-    time at the main path's launch sizes and at 2^20 gates.  Returns each
-    kernel's max_abs_err over the comparisons, and its ms at 2^20."""
+    device and host time at the main path's launch sizes, at 64 and at 2^20
+    gates, beside an empty kernel's.  Returns each kernel's max_abs_err over
+    the comparisons, its ms at 2^20, and the timings."""
     rng = np.random.default_rng(2024)
     checked = 0
     errs = {"garble_and": 0, "eval_and": 0}
@@ -221,7 +335,7 @@ def phase_kernels(dev) -> tuple[dict, dict]:
         r[0] |= np.uint64(1)
         rt = torch.from_numpy(r.view(np.int64).copy()).to(dev)
         for gid0 in GIDS:
-            c, tab = ops.garble_and(a, b, r, gid0)
+            c, tab = ops.garble_and(a, b, ops.offset(r), gid0)
             err = _max_abs_err((c, tab), ref.garble_and(a, b, rt, gid0))
             errs["garble_and"] = max(errs["garble_and"], err)
             if err:
@@ -249,37 +363,102 @@ def phase_kernels(dev) -> tuple[dict, dict]:
         f"for bit (tolerance 0: integer crypto) at m in {KERNEL_SIZES} x "
         f"gid0 in {GIDS}, all four truth-table rows ({checked} cases)")
 
+    _log_gate_code()
+    timing = {"empty": _empty_launch(dev, 500), "clocks": _clocks()}
+    log(f"  clocks (sm, max sm, temperature, power): {timing['clocks']}")
+    log(f"  empty kernel (the launch floor): {timing['empty']['ms']} ms "
+        f"(profiler), {timing['empty']['host_ms']:.4f} ms per call (events)")
     for m in (16, 32, 64, 1 << 20):
         a, b = _labels(rng, m, dev), _labels(rng, m, dev)
-        r = rng.integers(0, 1 << 64, 2, dtype=np.uint64)
-        rt = torch.from_numpy(r.view(np.int64).copy()).to(dev)
+        r = ops.offset(rng.integers(0, 1 << 64, 2, dtype=np.uint64))
         _, tab = ops.garble_and(a, b, r, 7)
         reps = 20 if m > 4096 else 500
-        fns = {
-            "garble_and": (lambda: ops.garble_and(a, b, r, 7),
-                           lambda: ref.garble_and(a, b, rt, 7),
-                           "garble_and_kernel", gk.GARBLE_LOP3_PER_AND,
-                           gk.GARBLE_BYTES_PER_AND),
-            "eval_and": (lambda: ops.eval_and(a, b, tab, 7),
-                         lambda: ref.eval_and(a, b, tab, 7),
-                         "eval_and_kernel", gk.EVAL_LOP3_PER_AND,
-                         gk.EVAL_BYTES_PER_AND),
-        }
-        for name, (kfn, pfn, kname, lop3, nbytes) in fns.items():
-            event_ms = _device_ms(kfn, reps)
-            kernel_ms = _kernel_ms(kfn, kname, reps)
-            plain_ms = _device_ms(pfn, max(reps // 50, 2))
-            bound_ms = max(m * lop3 / LOP3_PER_S,
-                           m * nbytes / HBM_BYTES_PER_S) * 1e3
-            ms = kernel_ms or event_ms
-            log(f"  {name} m={m}: kernel {kernel_ms} ms (profiler), "
-                f"{event_ms:.4f} ms per call (events), bound "
-                f"{bound_ms:.3e} ms ({bound_ms / ms:.3g} of it), plain "
-                f"{plain_ms:.4f} ms, {m / ms * 1e3:.3e} ANDs/s")
+        for name in ("garble_and", "eval_and"):
+            one = _gate_timing(name, a, b, r, tab, reps)
+            timing.setdefault(name, {})[m] = one
+            ms = one["ms"]
+            log(f"  {name} m={m}: kernel {one['kernel_ms']} ms (profiler), "
+                f"{one['host_ms']:.4f} ms per call (events), bound "
+                f"{one['bound_ms']:.3e} ms ({one['bound_ms'] / ms:.3g} of "
+                f"it), plain {one['plain_ms']:.4f} ms, "
+                f"{m / ms * 1e3:.3e} ANDs/s")
             if m == 1 << 20:
-                big[name] = {"ms": ms, "bound_ms": bound_ms,
-                             "plain_ms": plain_ms}
-    return errs, big
+                big[name] = {"ms": ms, "bound_ms": one["bound_ms"],
+                             "plain_ms": one["plain_ms"]}
+    timing["wrapper_us"] = _wrapper_costs(dev)
+    log("  host µs per piece of a 16-gate wrapper call (host clock, back "
+        "to back): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                 timing["wrapper_us"].items()))
+    return errs, big, timing
+
+
+def _wrapper_costs(dev, reps: int = 2000) -> dict:
+    """Host µs of the pieces of a 16-gate wrapper call, each timed on the
+    host's clock over back-to-back calls (median of five rounds taken in
+    turns): the outputs' allocation and views, the checks of one label
+    tensor, the ctypes call alone (m = 0 launches nothing), a launch of the
+    empty kernel, and the whole garble_and and eval_and."""
+    m = 16
+    rng = np.random.default_rng(16)
+    a, b = _labels(rng, m, dev), _labels(rng, m, dev)
+    _, tab = ops.garble_and(a, b, (3, 5), 0)
+    pa = a.data_ptr()
+    pieces = {
+        "outputs": lambda: ops._garble_outputs(m, a),
+        "check": lambda: ops._check(a, "a", 2, m, dev),
+        "ctypes": lambda: gk._garble(pa, pa, 3, 5, 0, pa, pa, 0, 0),
+        "empty_launch": lambda: gk.launch_empty(dev),
+        "garble_and": lambda: ops.garble_and(a, b, (3, 5), 0),
+        "eval_and": lambda: ops.eval_and(a, b, tab, 0),
+    }
+    rounds = {k: [] for k in pieces}
+    for _ in range(5):
+        for name, fn in pieces.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            rounds[name].append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+    return {k: statistics.median(v) for k, v in rounds.items()}
+
+
+def _empty_launch(dev, reps: int) -> dict:
+    """The empty kernel's device time (profiler) and the host's time per
+    back-to-back launch of it (events): the floor under a launch."""
+    fn = lambda: gk.launch_empty(dev)  # noqa: E731
+    return {"ms": _kernel_ms(fn, "empty_kernel", reps),
+            "host_ms": _device_ms(fn, reps)}
+
+
+def _gate_timing(name: str, a, b, r, tab, reps: int) -> dict:
+    """One half-gates kernel at one launch size: device ms per launch
+    (profiler, the median of three traces), ms per back-to-back wrapper
+    call (events: the host's pace where it is slower than the device), the
+    plain version, the bound."""
+    m = a.shape[0]
+    rt = torch.tensor(np.array(r, np.uint64).view(np.int64), device=a.device)
+    if name == "garble_and":
+        kfn = lambda: ops.garble_and(a, b, r, 7)  # noqa: E731
+        pfn = lambda: ref.garble_and(a, b, rt, 7)  # noqa: E731
+        lop3, nbytes = gk.GARBLE_LOP3_PER_AND, gk.GARBLE_BYTES_PER_AND
+    else:
+        kfn = lambda: ops.eval_and(a, b, tab, 7)  # noqa: E731
+        pfn = lambda: ref.eval_and(a, b, tab, 7)  # noqa: E731
+        lop3, nbytes = gk.EVAL_LOP3_PER_AND, gk.EVAL_BYTES_PER_AND
+    host_ms = _device_ms(kfn, reps)
+    # a launch lasts a few µs, so one trace of a few hundred moves with the
+    # card's clocks: the median of three
+    traces = [_kernel_ms(kfn, f"{name}_kernel", reps) for _ in range(3)]
+    kernel_ms = statistics.median(traces) if None not in traces else None
+    ops_ms = m * lop3 / LOP3_PER_S * 1e3
+    bytes_ms = m * nbytes / HBM_BYTES_PER_S * 1e3
+    return {"kernel_ms": kernel_ms, "ms": kernel_ms or host_ms,
+            "host_ms": host_ms, "plain_ms": _device_ms(pfn, max(reps // 50,
+                                                                2)),
+            "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -409,60 +588,60 @@ def phase_profile(dev) -> dict:
     return {"n": PROFILED["n"], "execute_ms": wall_ms, "busy_ms": busy_ms}
 
 
-def kernel_record(dev, counts: dict, errs: dict) -> list[dict]:
+def kernel_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
     """Time each kernel at every launch size the main path used and report
-    launch-weighted means beside the bound and the plain version;
-    ``errs`` holds the kernels phase's max_abs_err, which the comparisons
-    here extend."""
+    launch-weighted means beside the bound, the plain version, the host's
+    time per wrapper call and an empty kernel's device time; ``errs`` holds
+    the kernels phase's max_abs_err, which the comparisons here extend.
+    Returns the kernels' rows and the host and floor figures."""
     rng = np.random.default_rng(7)
-    rows = []
-    spec = {"garble_and": ("garble", "garble_and_kernel", 151,
-                           gk.GARBLE_LOP3_PER_AND, gk.GARBLE_BYTES_PER_AND),
-            "eval_and": ("eval", "eval_and_kernel", 175,
-                         gk.EVAL_LOP3_PER_AND, gk.EVAL_BYTES_PER_AND)}
-    for name, (kind, kname, line, ops_g, bytes_g) in spec.items():
+    rows, extra = [], {"empty": _empty_launch(dev, 200), "clocks": _clocks()}
+    log(f"  clocks (sm, max sm, temperature, power): {extra['clocks']}")
+    spec = {"garble_and": ("garble", 151), "eval_and": ("eval", 175)}
+    for name, (kind, line) in spec.items():
         sizes = counts["launch_sizes"][kind]
         total = sum(sizes.values())
-        ms = plain = bound = 0.0
-        bound_ops = bound_bytes = 0.0
+        acc = dict.fromkeys(("ms", "host_ms", "plain_ms", "ops_ms",
+                             "bytes_ms"), 0.0)
         for m, k in sizes.items():
             a, b = _labels(rng, m, dev), _labels(rng, m, dev)
-            r = rng.integers(0, 1 << 64, 2, dtype=np.uint64)
-            rt = torch.from_numpy(r.view(np.int64).copy()).to(dev)
+            r = ops.offset(rng.integers(0, 1 << 64, 2, dtype=np.uint64))
+            rt = torch.tensor(np.array(r, np.uint64).view(np.int64),
+                              device=dev)
             _, tab = ref.garble_and(a, b, rt, 3)
             if kind == "garble":
-                kfn = lambda: ops.garble_and(a, b, r, 3)  # noqa: E731
-                pfn = lambda: ref.garble_and(a, b, rt, 3)  # noqa: E731
-                err = _max_abs_err(kfn(), pfn())
+                err = _max_abs_err(ops.garble_and(a, b, r, 7),
+                                   ref.garble_and(a, b, rt, 7))
             else:
-                kfn = lambda: ops.eval_and(a, b, tab, 3)  # noqa: E731
-                pfn = lambda: ref.eval_and(a, b, tab, 3)  # noqa: E731
-                err = _max_abs_err((kfn(),), (pfn(),))
+                err = _max_abs_err((ops.eval_and(a, b, tab, 7),),
+                                   (ref.eval_and(a, b, tab, 7),))
             errs[name] = max(errs[name], err)
             if err:
                 raise AssertionError(f"{name} != plain at m={m}: "
                                      f"max_abs_err {err}")
-            km = _kernel_ms(kfn, kname, 200) or _device_ms(kfn, 200)
-            w = k / total
-            ms += w * km
-            plain += w * _device_ms(pfn, 20)
-            bound_ops += w * m * ops_g / LOP3_PER_S * 1e3
-            bound_bytes += w * m * bytes_g / HBM_BYTES_PER_S * 1e3
-        bound = max(bound_ops, bound_bytes)
+            one = _gate_timing(name, a, b, r, tab, 200)
+            for key in acc:
+                acc[key] += k / total * one[key]
+        bound = max(acc["ops_ms"], acc["bytes_ms"])
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/garble/csrc/garble.cu",
             "replaces": f"src/repro/kernels/garble/kernel.py:{line}",
             "launches": counts[f"{kind}_launches"],
             "max_abs_err": float(errs[name]),
-            "ms": ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": "operations" if bound_ops >= bound_bytes
+            "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": bound,
+            "bound_by": "operations" if acc["ops_ms"] >= acc["bytes_ms"]
             else "bytes",
             "library_ms": None})
+        extra[name] = {"ms": acc["ms"], "host_ms": acc["host_ms"]}
         log(f"  {name} over the main path's launch sizes "
-            f"{dict(sorted(sizes.items()))}: {ms:.5f} ms per launch "
-            f"(bound {bound:.3e} ms, plain {plain:.4f} ms)")
-    return rows
+            f"{dict(sorted(sizes.items()))}: {acc['ms']:.6f} ms per launch "
+            f"(bound {bound:.3e} ms, plain {acc['plain_ms']:.4f} ms), "
+            f"{acc['host_ms']:.5f} ms per wrapper call (events)")
+    log(f"  empty kernel: {extra['empty']['ms']} ms (profiler), "
+        f"{extra['empty']['host_ms']:.5f} ms per call (events)")
+    _log_gate_code()
+    return rows, extra
 
 
 # ---------------------------------------------------------------------------
@@ -1206,8 +1385,8 @@ def main() -> None:
         return out
 
     smi = timed("device", phase_device)
-    timed("build", phase_build)
-    errs, big = timed("kernels", phase_kernels, dev)
+    built = timed("build", phase_build)
+    errs, big, gate_timing = timed("kernels", phase_kernels, dev)
     ntt_errs = timed("ntt kernels", phase_ntt_kernels, dev)
     attn_err = timed("attn kernels", phase_attn_kernels, dev)
     parity = timed("parity", phase_parity, dev)
@@ -1217,7 +1396,7 @@ def main() -> None:
     ntt_counts, ckks_metrics = timed("ckks main", phase_ckks_main, dev)
     attn_counts, serve_metrics, model = timed("serve main", phase_serve_main,
                                               dev)
-    rows = timed("record", kernel_record, dev, counts, errs)
+    rows, gate_launch = timed("record", kernel_record, dev, counts, errs)
     ntt_rows, ntt_big = timed("ntt record", ntt_record, dev, ntt_counts,
                               ntt_errs)
     attn_row, attn_long = timed("attn record", attn_record, dev, attn_counts,
@@ -1227,7 +1406,9 @@ def main() -> None:
     serve_profiled = timed("serve profile", phase_serve_profile, dev, model)
     # the run's headline numbers, kept near the end of the output
     log("summary: " + json.dumps({
-        "main": metrics, "m=2^20": big, "parity": parity,
+        "main": metrics, "m=2^20": big, "gates_build": built,
+        "gates_timing": gate_timing, "gates_main_launch": gate_launch,
+        "parity": parity,
         "profile": profiled, "ckks_main": ckks_metrics,
         "ntt_4096_rows": ntt_big, "ckks_parity": ckks_parity,
         "ckks_profile": ckks_profiled, "serve_main": serve_metrics,

@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 class Built:
     path: Path
     seconds: float          # 0.0 when an earlier build was reused
-    log: str                # nvcc/ptxas output (registers, spills)
+    log: str                # nvcc/ptxas output (registers, spills), also
+                            # of a reused build
 
 
 def find_nvcc() -> str:
@@ -51,8 +52,10 @@ def build(name: str, csrc: Path) -> Built:
             h.update(p.name.encode())
             h.update(p.read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    log_path = out.with_suffix(".log")    # what the compiler said, kept
     if out.exists():
-        return Built(out, 0.0, "")
+        return Built(out, 0.0, log_path.read_text()
+                     if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, f"-I{csrc}", "-o", str(tmp),
@@ -65,5 +68,6 @@ def build(name: str, csrc: Path) -> Built:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                            f"{name}:\n{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
     os.replace(tmp, out)      # atomic: a concurrent build sees all or none
     return Built(out, seconds, log)

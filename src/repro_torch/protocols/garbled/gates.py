@@ -133,6 +133,7 @@ class GarblerGates(Gates):
         self.R = self._fresh_np(1)[0]
         self.R[0] |= np.uint64(1)  # point-and-permute: lsb(Delta) = 1
         self.R_t = to_device(self.R.view(np.int64).reshape(1, 2), device)
+        self.R_words = garble_ops.offset(self.R)   # what the kernels take
         self.gid = 0
         self.counts = GateCounts()
 
@@ -149,7 +150,7 @@ class GarblerGates(Gates):
     def and_(self, a, b):
         m = a.shape[0]
         self.counts.ands += m
-        c, tab = garble_ops.garble_and(a, b, self.R, self.gid)
+        c, tab = garble_ops.garble_and(a, b, self.R_words, self.gid)
         self.gid += m
         self.ch.send("tab", tab)
         return c

@@ -45,12 +45,18 @@ def _labels(rng, m, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [0, 1, 37, 4096])
+@pytest.mark.parametrize("m", [0, 1, 16, 32, 37, 4096, 1 << 20])
 def test_kernels_match_plain_all_rows(card, m):
+    """The main path's 16- and 32-gate launches, odd tails, and 2^20 gates
+    (where the garbler's two lanes fill many blocks), at 64-bit gate ids;
+    the outputs are one allocation's two views."""
     a, b, r, rt = _labels(np.random.default_rng(m), m, card)
     for gid0 in GIDS:
         ops.reset_counts()
-        c, tab = ops.garble_and(a, b, r, gid0)
+        c, tab = ops.garble_and(a, b, ops.offset(r), gid0)
+        assert c.is_contiguous() and tab.is_contiguous()
+        assert c.data_ptr() % 16 == 0 and tab.data_ptr() % 16 == 0
+        assert c.data_ptr() + c.nbytes <= tab.data_ptr()
         if m:
             c_p, tab_p = ref.garble_and(a, b, rt, gid0)
             assert torch.equal(c, c_p) and torch.equal(tab, tab_p)
