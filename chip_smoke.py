@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 It drives the port's three paths: the planned two-party garbled merge
-(GC), the planned CKKS jobs and serving qwen2-1.5b with the paged decode.
+(GC), the planned CKKS jobs and serving qwen2-1.5b (and, briefly,
+stablelm-3b) with the paged decode.
 TF32 stays off for the whole run: the plain versions' float32 products run
 in full float32.  Phases, each raising on failure:
 
@@ -46,11 +47,15 @@ in full float32.  Phases, each raising on failure:
                  NTT kernels also at 4096 rows;
 10. profile      the GC path's shape at n=512 and the CKKS main job under
                  torch.profiler: device time by op, and the busy share;
-11. attn kernels the paged-attention kernel against its plain version on
-                 the card (rtol 1e-4, atol 1e-5), f32 and bf16 pages: the
-                 JAX package's test shapes, qwen2's head shape at batch 1
-                 and 8 (ragged lengths, permuted pages, -1 tails), and
-                 batch 8 at lengths up to 32768 tokens in bf16;
+11. attn kernels the paged-attention kernels (split and combine) against
+                 their plain version on the card (rtol 1e-4, atol 1e-5),
+                 f32 and bf16 pages: the JAX package's test shapes, qwen2's
+                 head shape at batch 1 and 8 (ragged lengths, permuted
+                 pages, -1 tails), batch 8 at lengths up to 32768 tokens in
+                 bf16, the edge lengths 1, 63, 64, 65, 128, 129 and 32768
+                 over host tables and over tables prepared with 2-page
+                 chunks, stablelm-3b's heads (head_dim 80) and a group of
+                 16;
 12. serve parity reduced qwen2 in f32 with nonzero biases served on the
                  card equals the same run with device="cpu": greedy tokens,
                  and teacher-forced logits within relative 1e-4, for the
@@ -58,12 +63,19 @@ in full float32.  Phases, each raising on failure:
 13. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
                  run_server with the paged decode: 4 requests of 200-token
                  prompts, 64 new tokens each, every decode attention through
-                 the kernel (252 steps x 28 layers launches), held against
-                 the contiguous decode teacher-forced on its tokens;
-14. attn record  the kernel timed at the main path's lengths and at the
-                 32768-token batch beside its bound, its plain version and
-                 gather + scaled_dot_product_attention;
-15. serve profile a few decode steps of the serve main job under
+                 the kernels (252 steps x 28 layers wrapper calls, the
+                 tables prepared once a step), held against the contiguous
+                 decode teacher-forced on its tokens;
+14. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
+                 64 prompt tokens and 8 new ones, paged (7 steps x 32
+                 layers wrapper calls) against its contiguous decode;
+15. attn record  a wrapper call timed at the main path's lengths and at the
+                 32768-token batch: device time summed over the kernels it
+                 launches (split and combine also apart, profiler), the
+                 host's time per call over prepared and over host tables
+                 (events), beside the bound, the plain version and gather +
+                 scaled_dot_product_attention;
+16. serve profile a few decode steps of the serve main job under
                  torch.profiler: device time by op and the busy share.
 
 The last four lines are a JSON summary of the run's headline numbers, the
@@ -156,6 +168,10 @@ def phase_build() -> dict:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     out = gate_code()
+    out["attn_sass"] = attn_sass()
+    for name, c in out["attn_sass"].items():
+        log(f"  sass {name}: " + ", ".join(f"{op} {n}" for op, n in
+                                          c.items()))
     for name, c in out["sass"].items():
         log(f"  sass {name}: {c['instructions']} instructions "
             f"({c['per_thread']} per thread), LOP3 {c['LOP3']}, SHF "
@@ -217,9 +233,10 @@ def sass_counts(lib_path) -> dict:
     to itself left out), LOP3 and SHF (the logic and the rotations),
     shuffles, constant loads with a register index (a table or round key
     read by index would show here), branches, and the loops, as
-    [instructions in the body] per backward branch.  ``per_thread`` is the
-    most one thread can issue (the count) where the kernel has no loop,
-    else None.  Empty where the toolkit has no cuobjdump."""
+    [instructions in the body] per backward branch, and ``ops``, the count
+    of each opcode.  ``per_thread`` is the most one thread can issue (the
+    count) where the kernel has no loop, else None.  Empty where the
+    toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -233,7 +250,7 @@ def sass_counts(lib_path) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             cur = {"instructions": 0, "LOP3": 0, "SHF": 0, "SHFL": 0,
-                   "LDC_indexed": 0, "branches": 0, "loops": []}
+                   "LDC_indexed": 0, "branches": 0, "loops": [], "ops": {}}
             out[_kernel_name(line.split("Function :")[1].strip())] = cur
             continue
         mt = line_re.search(line)
@@ -242,6 +259,7 @@ def sass_counts(lib_path) -> dict:
         addr, op, args = int(mt.group(1), 16), mt.group(2), mt.group(4)
         if op == "NOP":
             continue
+        cur["ops"][op] = cur["ops"].get(op, 0) + 1
         if op == "BRA":
             target = re.search(r"0x([0-9a-f]+)", args)
             if target and int(target.group(1), 16) == addr:
@@ -258,6 +276,26 @@ def sass_counts(lib_path) -> dict:
             cur["LDC_indexed"] += 1
     for c in out.values():
         c["per_thread"] = None if c["loops"] else c["instructions"]
+    return out
+
+
+#: SASS opcodes that show the paged-attention kernels' design: tensor-core
+#: products (HMMA), shared-memory matrix loads (LDSM), cp.async (LDGSTS),
+#: register transposes (MOVM), shuffles and special-function ops (MUFU)
+ATTN_SASS_OPS = ("HMMA", "LDSM", "LDGSTS", "MOVM", "SHFL", "MUFU", "FFMA")
+
+
+def attn_sass() -> dict:
+    """Per paged-attention kernel instantiation (demangled where c++filt
+    is there), the static count of each ATTN_SASS_OPS opcode."""
+    out = {}
+    for name, c in sass_counts(pk.build_info().path).items():
+        if shutil.which("c++filt"):
+            name = subprocess.run(["c++filt", name], capture_output=True,
+                                  text=True).stdout.strip()
+        name = name.replace("(anonymous namespace)::", "")
+        out[name.split("(")[0].replace("void ", "")] = {
+            op: c["ops"].get(op, 0) for op in ATTN_SASS_OPS}
     return out
 
 
@@ -317,6 +355,30 @@ def _kernel_ms(fn, name: str, reps: int) -> float | None:
         if cnt and tot:
             return tot / cnt / 1e3
     log(f"  (the profiler showed no {name}; timing it with CUDA events)")
+    return None
+
+
+def _call_kernels_ms(fn, match: str, reps: int) -> dict | None:
+    """Device time per call of every kernel a call launches whose name
+    holds ``match``, by kernel name, from the profiler's CUDA trace (mean
+    over ``reps`` calls); None if three traces in a row show none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            if match in ev.key:
+                name = _attn_kernel_name(ev.key)
+                out[name] = out.get(name, 0.0) + _dev_us(ev) / reps / 1e3
+        if out and all(out.values()):
+            return out
+    log(f"  (the profiler showed no {match} kernel; timing the call with "
+        f"CUDA events)")
     return None
 
 
@@ -411,6 +473,12 @@ def _wrapper_costs(dev, reps: int = 2000) -> dict:
         "garble_and": lambda: ops.garble_and(a, b, (3, 5), 0),
         "eval_and": lambda: ops.eval_and(a, b, tab, 0),
     }
+    return _host_us(pieces, reps)
+
+
+def _host_us(pieces: dict, reps: int) -> dict:
+    """Host µs per call of each piece, on the host's clock over ``reps``
+    back-to-back calls, the median of five rounds taken in turns."""
     rounds = {k: [] for k in pieces}
     for _ in range(5):
         for name, fn in pieces.items():
@@ -984,7 +1052,24 @@ ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5
 SERVE_REL = 3e-2
 #: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12
-ATTN_KERNEL = "paged_attn_kernel"
+#: the paged-attention call's kernels: the split kernel (one per call)
+#: and, where a sequence has more than one chunk, the combine kernel
+ATTN_KERNELS = ("paged_attn_split_kernel", "paged_attn_combine_kernel")
+#: stablelm-3b at full width (src/repro_torch/configs/stablelm_3b.py):
+#: head_dim 80, 32 query heads over 32 KV heads
+STABLELM = get_config("stablelm-3b")
+#: its paged serve: 1 request of a 64-token prompt, 8 new tokens
+SERVE_STABLELM = dict(n_req=1, prompt=64, max_new=8, max_seq=73, batch=2)
+#: lengths at the kernel's edges: one token, either side of a page (and of
+#: a four-warp tile), a 2-page chunk exactly and plus one, decode_32k
+ATTN_EDGES = (1, 63, 64, 65, 128, 129, 32768)
+
+
+def _attn_kernel_name(key: str) -> str:
+    for name in ATTN_KERNELS:
+        if name in key:
+            return name
+    return key
 
 
 def _attn_inputs(seed: int, batch: int, qh: int, kvh: int, hd: int,
@@ -1017,10 +1102,19 @@ def _attn_plain(q, kp, vp, bt, sl):
         torch.from_numpy(sl).to(q.device))
 
 
-def _attn_check(x, what: str) -> float:
-    """The kernel against its plain version on the same inputs; returns
-    max |kernel - plain|."""
-    got = pops.paged_decode_attention(*x)
+def _attn_tables(x, chunk_pages=None):
+    q, kp, vp, bt, sl = x
+    return pops.prepare_tables(bt, sl, page_size=kp.shape[1],
+                               num_pages=kp.shape[0], kv_heads=kp.shape[2],
+                               device=q.device, chunk_pages=chunk_pages)
+
+
+def _attn_check(x, what: str, tables=None) -> float:
+    """The kernel against its plain version on the same inputs, over the
+    host tables or over ``tables`` prepared from them; returns max |kernel
+    - plain|."""
+    got = pops.paged_decode_attention(*x) if tables is None else \
+        pops.paged_decode_attention(*x[:3], tables=tables)
     want = _attn_plain(*x)
     torch.cuda.synchronize()
     bad = (got - want).abs() > ATTN_ATOL + ATTN_RTOL * want.abs()
@@ -1062,17 +1156,52 @@ def phase_attn_kernels(dev) -> float:
                                             lens=[48, 48]), "bf16 full"))
     lens = np.random.default_rng(32).integers(1, LONG_LEN + 1, LONG_BATCH)
     lens[0] = LONG_LEN
-    err = max(err, _attn_check(
-        _attn_inputs(32, LONG_BATCH, QWEN2.n_heads, QWEN2.n_kv_heads,
+    x = _attn_inputs(32, LONG_BATCH, QWEN2.n_heads, QWEN2.n_kv_heads,
                      QWEN2.head_dim, PAGE, LONG_LEN // PAGE, torch.bfloat16,
-                     dev, lens=lens), f"batch 8 up to {LONG_LEN} tokens"))
-    cases += 2
+                     dev, lens=lens)
+    err = max(err, _attn_check(x, f"batch 8 up to {LONG_LEN} tokens"))
+    err = max(err, _attn_check(x, f"batch 8 up to {LONG_LEN}, prepared",
+                               _attn_tables(x)))
+    cases += 3
+    # the edges: each length and one more, qwen2's heads, over host tables
+    # and over tables prepared with 2-page chunks (128 and 129 end a chunk
+    # and start one); stablelm-3b's heads (head_dim 80, group 1); a group
+    # of 16 (the kernel's two n-tiles)
+    edge = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in ATTN_EDGES:
+            lens2 = [n, min(n + 1, LONG_LEN)]
+            x = _attn_inputs(100 + n, 2, QWEN2.n_heads, QWEN2.n_kv_heads,
+                             QWEN2.head_dim, PAGE, -(-max(lens2) // PAGE),
+                             dtype, dev, lens=lens2)
+            edge = max(edge, _attn_check(x, f"lengths {lens2} {dtype}"))
+            edge = max(edge, _attn_check(x, f"lengths {lens2} {dtype}, "
+                                         f"2-page chunks",
+                                         _attn_tables(x, 2)))
+            cases += 2
+        for lens2 in ([1, 73], [129, 64], [2048, 300]):
+            x = _attn_inputs(7 + lens2[0], 2, STABLELM.n_heads,
+                             STABLELM.n_kv_heads, STABLELM.head_dim, PAGE,
+                             -(-max(lens2) // PAGE), dtype, dev, lens=lens2)
+            edge = max(edge, _attn_check(x, f"stablelm {lens2} {dtype}"))
+            edge = max(edge, _attn_check(x, f"stablelm {lens2} {dtype}, "
+                                         f"1-page chunks",
+                                         _attn_tables(x, 1)))
+            cases += 2
+        x = _attn_inputs(16, 3, 32, 2, 64, 16, 6, dtype, dev)
+        edge = max(edge, _attn_check(x, f"group 16 {dtype}"))
+        edge = max(edge, _attn_check(x, f"group 16 {dtype}, prepared",
+                                     _attn_tables(x, 2)))
+        cases += 2
+    err = max(err, edge)
     log(f"attn kernels: paged_decode_attention equals its plain version "
         f"within rtol {ATTN_RTOL} / atol {ATTN_ATOL} in {cases} cases (f32 "
         f"and bf16 pages: the JAX package's shapes, full and with -1 tails; "
         f"qwen2's heads at batch 1 and 8; a single ragged query; batch "
-        f"{LONG_BATCH} at lengths {sorted(lens.tolist())} in bf16); "
-        f"max_abs_err {err:.3e}")
+        f"{LONG_BATCH} at lengths {sorted(lens.tolist())} in bf16, over "
+        f"host and prepared tables; lengths {ATTN_EDGES} and one more, over "
+        f"host tables and 2-page chunks; stablelm-3b's heads; a group of "
+        f"16); max_abs_err {err:.3e} (the edges' {edge:.3e})")
     return err
 
 
@@ -1170,6 +1299,39 @@ def phase_serve_parity(dev) -> dict:
     return out
 
 
+def _decode_turns(model, cfg, prompt, max_seq: int, steps: int = 32,
+                  rounds: int = 2) -> dict:
+    """ms per decode step of the paged and the contiguous decode after the
+    same prompt, ``steps`` greedy steps each synchronised by its token, in
+    turns (paged, contiguous, contiguous, paged) for ``rounds`` rounds: the
+    host's pace moves between runs, so the two are compared only in
+    turns."""
+    dev = model.device
+    out = {"paged": [], "contiguous": []}
+    with torch.inference_mode():
+        toks = torch.as_tensor(np.asarray(prompt), device=dev)[None]
+        for _ in range(rounds):
+            for paged in (True, False, False, True):
+                logits, caches = lm_prefill(model, toks, cfg, toks.shape[1]
+                                            if paged else max_seq)
+                if paged:
+                    caches, clen = paged_cache(cfg, caches, max_seq), None
+                else:
+                    clen = torch.tensor([toks.shape[1]], device=dev)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    logits, caches = lm_decode(model, tok, caches, clen, cfg)
+                    if clen is not None:
+                        clen = clen + 1
+                    tok = logits[:, -1].argmax(-1, keepdim=True)
+                    int(tok[0, 0])
+                out["paged" if paged else "contiguous"].append(
+                    (time.perf_counter() - t0) / steps * 1e3)
+    return out
+
+
 def phase_serve_main(dev) -> tuple[dict, dict, object]:
     """qwen2-1.5b at full width through run_server with the paged decode;
     returns the kernel's counts from that run, its metrics and the model."""
@@ -1213,6 +1375,7 @@ def phase_serve_main(dev) -> tuple[dict, dict, object]:
     if worst >= SERVE_REL:
         raise AssertionError(f"serve main: paged logits differ from the "
                              f"contiguous decode's by relative {worst}")
+    turns = _decode_turns(model, cfg, prompts[0], job["max_seq"])
     n_tok = job["n_req"] * job["max_new"]
     m = {"arch": cfg.name, "n_req": job["n_req"], "prompt": job["prompt"],
          "max_new": job["max_new"], "max_seq": job["max_seq"],
@@ -1230,7 +1393,7 @@ def phase_serve_main(dev) -> tuple[dict, dict, object]:
          "greedy_agreement_untied": agree,
          "forced_paged_argmax_matches_run": same_p / n_tok,
          "forced_contiguous_argmax_matches_run": same_c / n_tok,
-         "kv_plan": st.kv_plan}
+         "kv_plan": st.kv_plan, "decode_turns_ms": turns}
     log(f"serve main: {cfg.name} at full width (d_model {cfg.d_model}, "
         f"{cfg.n_layers} layers, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
         f"vocab {cfg.vocab_size}), bf16, seeded weights ({weight_bytes} "
@@ -1243,6 +1406,13 @@ def phase_serve_main(dev) -> tuple[dict, dict, object]:
         f"({m['decode_tokens_per_s']:.2f} tokens/s, "
         f"{m['ms_per_decode_step']:.3f} ms per step; contiguous decode "
         f"{m['contiguous_ms_per_decode_step']:.3f} ms per step)")
+    log(f"  in turns (paged, contiguous, contiguous, paged; 32 steps "
+        f"after the first prompt): paged "
+        + ", ".join(f"{t:.3f}" for t in turns["paged"])
+        + " ms per step, contiguous "
+        + ", ".join(f"{t:.3f}" for t in turns["contiguous"])
+        + f" (medians {statistics.median(turns['paged']):.3f} and "
+        f"{statistics.median(turns['contiguous']):.3f})")
     log(f"  kernel launches {counts['launches']} (== {steps} steps x "
         f"{cfg.n_layers} layers), KV tokens read {counts['tokens']}, "
         f"max_memory_allocated {peak} bytes")
@@ -1252,6 +1422,63 @@ def phase_serve_main(dev) -> tuple[dict, dict, object]:
         f"{same_p}/{n_tok} tokens (paged) and {same_c}/{n_tok} "
         f"(contiguous); untied greedy runs agree on {agree:.4f} of tokens")
     return counts, m, model
+
+
+def phase_serve_stablelm(dev) -> dict:
+    """stablelm-3b (head_dim 80) at full width through run_server with the
+    paged decode, every decode attention through the kernel, held against
+    the contiguous decode teacher-forced on its tokens; both decodes run a
+    2-token warm-up first, and the model is freed after."""
+    cfg, job = STABLELM, SERVE_STABLELM
+    t0 = time.perf_counter()
+    model = init_lm(cfg, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = _prompts(5, cfg, job)
+    for paged in (True, False):   # first launches of this shape's kernels
+        _serve(model, cfg, prompts, dict(job, max_new=2), paged)
+    pops.reset_counts()
+    toks, st = _serve(model, cfg, prompts, job, paged=True)
+    counts = pops.counts()
+    steps = job["n_req"] * (job["max_new"] - 1)
+    if counts["launches"] != steps * cfg.n_layers or counts["plain_calls"]:
+        raise AssertionError(f"serve stablelm: kernel counts {counts}; "
+                             f"expected {steps} x {cfg.n_layers} launches")
+    _, st_c = _serve(model, cfg, prompts, job, paged=False)
+    worst = 0.0
+    for p, t in zip(prompts, toks):
+        if len(t) != job["max_new"] or min(t) < 0 or \
+                max(t) >= cfg.vocab_size:
+            raise AssertionError("serve stablelm: malformed outputs")
+        lp = _forced_logits(model, cfg, p, t, True, job["max_seq"])
+        lc = _forced_logits(model, cfg, p, t, False, job["max_seq"])
+        if not bool(torch.isfinite(lp).all() and torch.isfinite(lc).all()):
+            raise AssertionError("serve stablelm: non-finite logits")
+        worst = max(worst, float(_rel_per_step(lp, lc).max()))
+    del model
+    torch.cuda.empty_cache()
+    if worst >= SERVE_REL:
+        raise AssertionError(f"serve stablelm: paged logits differ from the "
+                             f"contiguous decode's by relative {worst}")
+    m = {"arch": cfg.name, "head_dim": cfg.head_dim, "init_s": init_s,
+         "decode_tokens": st.decode_tokens,
+         "ms_per_decode_step": st.decode_s / st.decode_tokens * 1e3,
+         "contiguous_ms_per_decode_step":
+             st_c.decode_s / st_c.decode_tokens * 1e3,
+         "launches": counts["launches"],
+         "combine_launches": counts["combine_launches"],
+         "max_rel_vs_contiguous": worst}
+    log(f"serve stablelm: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}), bf16, seeded weights (built in {init_s:.2f} s); "
+        f"{job['n_req']} request of {job['prompt']} tokens, "
+        f"{job['max_new']} new, paged decode: {counts['launches']} kernel "
+        f"launches (== {steps} steps x {cfg.n_layers} layers), "
+        f"{m['ms_per_decode_step']:.3f} ms per step (contiguous "
+        f"{m['contiguous_ms_per_decode_step']:.3f}); against the contiguous "
+        f"decode teacher-forced: max relative logit difference {worst:.3e} "
+        f"(limit {SERVE_REL})")
+    return m
 
 
 def _attn_timing(lens, dev, reps: int) -> dict:
@@ -1281,29 +1508,94 @@ def _attn_timing(lens, dev, reps: int) -> dict:
     if lib_err > 2e-2:
         raise AssertionError(f"gather + SDPA differs from the plain version "
                              f"by {lib_err}")
-    kfn = lambda: pops.paged_decode_attention(*x)  # noqa: E731
+    tables = _attn_tables(x)
+    err = max(err, _attn_check(x, f"lengths {list(lens)}, prepared", tables))
+    kfn = lambda: pops.paged_decode_attention(q, kp, vp,  # noqa: E731
+                                              tables=tables)
+    hfn = lambda: pops.paged_decode_attention(*x)  # noqa: E731
     pfn = lambda: _attn_plain(*x)  # noqa: E731
-    ms = _kernel_ms(kfn, ATTN_KERNEL, reps) or _device_ms(kfn, reps)
+    parts = _call_kernels_ms(kfn, "paged_attn", reps)
+    ms = sum(parts.values()) if parts else _device_ms(kfn, reps)
     nbytes = pk.work_bytes(sl, kvh, qh // kvh, hd, PAGE, 2)
     flops = pk.work_flops(sl, kvh, qh // kvh, hd)
-    return {"ms": ms, "plain_ms": _device_ms(pfn, max(reps // 10, 3)),
+    return {"ms": ms, "parts": parts or {},
+            "chunk_pages": tables.chunk_pages, "chunks": tables.n_items,
+            "host_ms": _device_ms(kfn, reps),
+            "host_tables_ms": _device_ms(hfn, reps),
+            "plain_ms": _device_ms(pfn, max(reps // 10, 3)),
             "library_ms": _device_ms(library, max(reps // 10, 3)),
             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "ops_ms": flops / F32_FLOPS_PER_S * 1e3, "err": err}
 
 
+def _attn_wrapper_costs(dev, reps: int = 2000) -> dict:
+    """Host µs of the pieces of a paged-attention wrapper call at qwen2's
+    heads, 230 tokens, batch 1 (the serve main path's shape), each on the
+    host's clock: the tensor and card checks, the output and workspace
+    allocation, the ctypes call alone (no items: it launches nothing), the
+    whole call over prepared tables and over host tables; and, per decode
+    step, preparing the tables, and per layer, the cache write the paged
+    decode does before the call."""
+    from repro_torch.kernels.paged_attn import kernel as pkern
+    from repro_torch.serve.paged_kv import PagedKVCache, PagedKVConfig
+    x = _attn_inputs(230, 1, QWEN2.n_heads, QWEN2.n_kv_heads,
+                     QWEN2.head_dim, PAGE, 4, torch.bfloat16, dev,
+                     lens=[230])
+    q, kp, vp, bt, sl = x
+    tables = _attn_tables(x)
+    lib = pkern.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cache = PagedKVCache(PagedKVConfig(max_pages_per_seq=5), 5, 1,
+                         QWEN2.n_kv_heads, QWEN2.head_dim, torch.bfloat16,
+                         n_layers=2, device=dev)
+    z = torch.zeros((2, 200, QWEN2.n_kv_heads, QWEN2.head_dim),
+                    dtype=torch.bfloat16, device=dev)
+    cache.write_prefill(0, z, z)
+    step = cache.append_step()
+    kv = z[0, :1]
+
+    def outputs():
+        torch.empty((1, 2, 6, 128), dtype=torch.float32, device=dev)
+        torch.empty(tables.n_items * 2 * 6 * 130, dtype=torch.float32,
+                    device=dev)
+
+    def checks():
+        pops._check_tensors(q, kp, vp)
+        pops._check_prepared(tables, q, kp)
+        pops._check_card(q, kp, vp)
+    pieces = {
+        "checks": checks,
+        "outputs": outputs,
+        "ctypes": lambda: lib.paged_attn_bf16(0, 0, 0, 0, 0, 0, 0, 0, 1, 2,
+                                              6, 128, 64, 4, 0, 0, 0, 1.0,
+                                              stream),
+        "call": lambda: pops.paged_decode_attention(q, kp, vp,
+                                                    tables=tables),
+        "call_host_tables": lambda: pops.paged_decode_attention(*x),
+        "prepare_tables": lambda: _attn_tables(x),
+        "cache_write": lambda: cache.write(0, step, kv, kv),
+    }
+    return _host_us(pieces, reps)
+
+
 def attn_record(dev, counts: dict, err: float) -> tuple[dict, dict]:
-    """The kernel at every length of the serve main path, launch-weighted,
-    and at the 32768-token batch."""
+    """The kernels at every length of the serve main path, launch-weighted,
+    and at the 32768-token batch: device time per call summed over the
+    kernels it launches (split and combine also apart), the host's pace per
+    call over prepared and over host tables (events, back to back)."""
     sizes = counts["launch_sizes"]
     total = sum(sizes.values())
-    acc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
-           "ops_ms": 0.0}
+    keys = ("ms", "host_ms", "host_tables_ms", "plain_ms", "library_ms",
+            "bytes_ms", "ops_ms")
+    acc = dict.fromkeys(keys, 0.0)
+    parts: dict = {}
     for lens, k in sizes.items():
         one = _attn_timing(list(lens), dev, 50)
         err = max(err, one["err"])
-        for key in acc:
+        for key in keys:
             acc[key] += k / total * one[key]
+        for name, v in one["parts"].items():
+            parts[name] = parts.get(name, 0.0) + k / total * v
     bound = max(acc["bytes_ms"], acc["ops_ms"])
     by = "bytes" if acc["bytes_ms"] >= acc["ops_ms"] else "operations"
     row = {"name": "paged_decode_attention", "route": "cuda",
@@ -1319,17 +1611,36 @@ def attn_record(dev, counts: dict, err: float) -> tuple[dict, dict]:
     b_big = max(big["bytes_ms"], big["ops_ms"])
     log(f"  paged_decode_attention over the serve main path's "
         f"{len(sizes)} lengths ({min(sizes)[0]}..{max(sizes)[0]} tokens, "
-        f"batch 1, bf16): {acc['ms']:.5f} ms per launch (bound "
-        f"{bound:.3e} ms by {by}, {bound / acc['ms']:.3g} of it; plain "
+        f"batch 1, bf16, 1-page chunks): {acc['ms']:.5f} ms per call, the "
+        f"sum of its kernels ("
+        + ", ".join(f"{k} {v:.5f}" for k, v in parts.items())
+        + f"; bound {bound:.3e} ms by {by}, {bound / acc['ms']:.3g} of it; "
+        f"host {acc['host_ms']:.4f} ms per call over prepared tables, "
+        f"{acc['host_tables_ms']:.4f} over host tables (events); plain "
         f"{acc['plain_ms']:.4f} ms; gather + SDPA, two calls, "
         f"{acc['library_ms']:.4f} ms)")
     log(f"  paged_decode_attention at batch {LONG_BATCH}, lengths up to "
-        f"{LONG_LEN} ({int(lens.sum())} tokens): {big['ms']:.4f} ms (bound "
-        f"{b_big:.4f} ms by bytes, {b_big / big['ms']:.3g} of it; plain "
+        f"{LONG_LEN} ({int(lens.sum())} tokens, {big['chunks']} chunks of "
+        f"{big['chunk_pages']} pages): {big['ms']:.4f} ms ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in big["parts"].items())
+        + f"; bound {b_big:.4f} ms by bytes, {b_big / big['ms']:.3g} of it; "
+        f"host {big['host_ms']:.4f} ms per call; plain "
         f"{big['plain_ms']:.3f} ms; gather + SDPA {big['library_ms']:.3f} "
         f"ms)")
-    return row, {k: big[k] for k in ("ms", "plain_ms", "library_ms",
-                                      "bytes_ms", "ops_ms")}
+    for name, ms in (("serve lengths", acc["ms"]), ("batch 8", big["ms"])):
+        lib = acc["library_ms"] if name == "serve lengths" else \
+            big["library_ms"]
+        if ms >= lib:
+            log(f"  NOTE: at the {name} the kernels ({ms:.5f} ms) are not "
+                f"faster than gather + SDPA ({lib:.5f} ms)")
+    costs = _attn_wrapper_costs(dev)
+    log("  host µs per piece of a paged wrapper call at 230 tokens (host "
+        "clock, back to back): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                            costs.items()))
+    main = dict(acc, parts=parts, wrapper_us=costs)
+    return row, {"serve_lengths": main,
+                 "long": {k: big[k] for k in keys + ("parts", "chunk_pages",
+                                                    "chunks")}}
 
 
 def phase_serve_profile(dev, model) -> dict:
@@ -1396,11 +1707,12 @@ def main() -> None:
     ntt_counts, ckks_metrics = timed("ckks main", phase_ckks_main, dev)
     attn_counts, serve_metrics, model = timed("serve main", phase_serve_main,
                                               dev)
+    stablelm = timed("serve stablelm", phase_serve_stablelm, dev)
     rows, gate_launch = timed("record", kernel_record, dev, counts, errs)
     ntt_rows, ntt_big = timed("ntt record", ntt_record, dev, ntt_counts,
                               ntt_errs)
-    attn_row, attn_long = timed("attn record", attn_record, dev, attn_counts,
-                                attn_err)
+    attn_row, attn_timing = timed("attn record", attn_record, dev,
+                                  attn_counts, attn_err)
     profiled = timed("profile", phase_profile, dev)
     ckks_profiled = timed("ckks profile", phase_ckks_profile, dev)
     serve_profiled = timed("serve profile", phase_serve_profile, dev, model)
@@ -1412,7 +1724,8 @@ def main() -> None:
         "profile": profiled, "ckks_main": ckks_metrics,
         "ntt_4096_rows": ntt_big, "ckks_parity": ckks_parity,
         "ckks_profile": ckks_profiled, "serve_main": serve_metrics,
-        "serve_parity": serve_parity, "attn_long": attn_long,
+        "serve_parity": serve_parity, "attn": attn_timing,
+        "serve_stablelm": stablelm,
         "serve_profile": serve_profiled, "phases_s": phases,
         "total_s": time.perf_counter() - t_all}))
     print(smi, flush=True)

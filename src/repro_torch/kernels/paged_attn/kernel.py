@@ -1,5 +1,5 @@
-"""ctypes binding of the paged decode-attention CUDA kernel
-(``csrc/paged_attn.cu``).
+"""ctypes binding of the paged decode-attention CUDA kernels
+(``csrc/paged_attn.cu``: the split kernel and the combine kernel).
 
 The library is built from the sources in the checkout on first use (see
 ``kernels/_build.py``) and loaded once per process.  The launch function
@@ -37,8 +37,7 @@ def library() -> ctypes.CDLL:
             built = _build.build(LIB_NAME, CSRC)
             lib = ctypes.CDLL(str(built.path))
             for fn in (lib.paged_attn_f32, lib.paged_attn_bf16):
-                fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _F, _P]
+                fn.argtypes = [_P] * 8 + [_I] * 9 + [_F, _P]
                 fn.restype = ctypes.c_int
             lib.paged_attn_error_string.argtypes = [ctypes.c_int]
             lib.paged_attn_error_string.restype = ctypes.c_char_p
@@ -54,19 +53,28 @@ def build_info() -> _build.Built:
 
 
 def launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-           block_table: torch.Tensor, seq_lens: torch.Tensor,
-           out: torch.Tensor, scale: float) -> None:
-    """q, out: (batch, kv_heads, group, head_dim) float32; pages (num_pages,
-    page_size, kv_heads, head_dim) float32 or bfloat16; block_table
-    (batch, max_pages) and seq_lens (batch,) int32, all on one card."""
+           items: torch.Tensor, chunk_start: torch.Tensor,
+           block_table: torch.Tensor, out: torch.Tensor, ws: torch.Tensor,
+           max_chunks: int, scale: float) -> None:
+    """q: (batch, kv_heads, group, head_dim) float32 or bfloat16; out the
+    same shape in float32; pages (num_pages, page_size, kv_heads, head_dim)
+    float32 or bfloat16; the split plan's int32 tables (items (n_items, 4):
+    sequence, first token, end token, 1 if the sequence's only chunk, 16-
+    byte aligned; chunk_start (batch + 1,); block_table (batch,
+    max_pages)); ws float32, n_items x kv_heads x group x (head_dim + 2)
+    where max_chunks (the most chunks of one sequence) exceeds 1, all on
+    one card.  Launches the split kernel, then, where max_chunks > 1, the
+    combine kernel."""
     lib = library()
     batch, kv_heads, group, head_dim = q.shape
     fn = lib.paged_attn_bf16 if k_pages.dtype == torch.bfloat16 \
         else lib.paged_attn_f32
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-             batch, kv_heads, group, head_dim, k_pages.shape[1],
-             block_table.shape[1], scale,
+             items.data_ptr(), chunk_start.data_ptr(),
+             block_table.data_ptr(), out.data_ptr(), ws.data_ptr(), batch,
+             kv_heads, group, head_dim, k_pages.shape[1],
+             block_table.shape[1], items.shape[0], max_chunks,
+             int(q.dtype == torch.bfloat16), scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA error in paged_attn launch: "

@@ -197,7 +197,8 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, cfg, cache,
 
     ``step`` is the cache's ``AppendStep`` for this decode step: the slot of
     each sequence's new token, its position (the contiguous path's
-    cache_len) and the tables after the append.  The token's K/V are
+    cache_len) and the tables after the append, prepared once for every
+    layer of the step.  The token's K/V are
     written into the layer's pages and the kernel attends over the first
     cache_len + 1 tokens, which is what ``attention_decode`` attends over.
     Returns out (b, 1, d)."""
@@ -206,7 +207,7 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, cfg, cache,
     cache.write(layer, step, k_new[:, 0], v_new[:, 0])
     out = paged_ops.paged_decode_attention(
         q[:, 0], cache.k_pages[layer], cache.v_pages[layer],
-        step.block_table, step.seq_lens)
+        tables=step.tables)
     return out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype) @ p.wo
 
 

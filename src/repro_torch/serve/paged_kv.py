@@ -34,6 +34,7 @@ import torch
 from ..core.bytecode import Instr, Op, Program
 from ..core.planner import PlanConfig, plan
 from ..kernels import resolve_device, to_device
+from ..kernels.paged_attn import ops as paged_ops
 
 
 @dataclasses.dataclass
@@ -45,12 +46,13 @@ class PagedKVConfig:
 @dataclasses.dataclass(frozen=True)
 class AppendStep:
     """Where one decode step's token goes for every sequence of the batch,
-    and the tables the attention reads once it is appended."""
+    and the tables the attention reads once it is appended: checked, split
+    and (on a card) uploaded once for all the step's layers."""
     slots: torch.Tensor       # (2, batch) int64 on the device: page, offset
     positions: torch.Tensor   # (batch,) int64 on the device: the token's
     #                           position (the contiguous path's cache_len)
-    block_table: np.ndarray   # (batch, max_pages) int32 after the append
-    seq_lens: np.ndarray      # (batch,) int32 after the append
+    tables: paged_ops.DecodeTables   # block table and lengths after the
+    #                                    append (copies), and their plan
 
 
 class PagedKVCache:
@@ -115,15 +117,19 @@ class PagedKVCache:
 
     def append_step(self) -> AppendStep:
         """Reserve the next position of every sequence of the batch for one
-        decode step (allocating pages at page boundaries) and advance the
-        lengths; the layers then :meth:`write` into the slots."""
+        decode step (allocating pages at page boundaries), advance the
+        lengths and prepare the attention's tables; the layers then
+        :meth:`write` into the slots."""
         pos = self.seq_lens.astype(np.int64)
         slots = [self._reserve(seq, 1) for seq in range(len(pos))]
         dev = to_device(np.stack([np.concatenate([s[0] for s in slots]),
                                   np.concatenate([s[1] for s in slots]),
                                   pos]), self.device)
-        return AppendStep(dev[:2], dev[2], self.block_table.copy(),
-                          self.seq_lens.copy())
+        tables = paged_ops.prepare_tables(
+            self.block_table, self.seq_lens,
+            page_size=self.cfg.page_size, num_pages=self.k_pages.shape[1],
+            kv_heads=self.k_pages.shape[3], device=self.device)
+        return AppendStep(dev[:2], dev[2], tables)
 
     def write(self, layer: int, step: AppendStep, k_new: torch.Tensor,
               v_new: torch.Tensor) -> None:

@@ -129,9 +129,12 @@ def test_small_ckks_job_on_card_matches_cpu(card):
 
 
 #: (batch, q_heads, kv_heads, head_dim, page_size, max_pages): shapes of
-#: the JAX package's paged-attention tests, then qwen2's head shape
+#: the JAX package's paged-attention tests, then qwen2's head shape, then
+#: stablelm-3b's (32 query heads over 32 KV heads of 80), then a group of
+#: 16 (two n-tiles of the kernel)
 PAGED = [(2, 8, 2, 64, 16, 4), (3, 4, 4, 32, 8, 3), (1, 16, 8, 128, 32, 2),
-         (4, 2, 1, 64, 8, 5), (3, 12, 2, 128, 64, 5)]
+         (4, 2, 1, 64, 8, 5), (3, 12, 2, 128, 64, 5), (2, 32, 32, 80, 64, 3),
+         (2, 32, 2, 64, 16, 5)]
 
 
 @pytest.mark.cuda
@@ -162,6 +165,56 @@ def test_paged_attention_matches_plain(card, shape, dtype):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
     assert pops.counts()["launches"] == 1
     assert pops.counts()["tokens"] == int(sl.sum())
+
+
+#: lengths at the kernel's edges: one token, either side of a 64-token
+#: page (and of a 64-token tile of four warps), a 2-page chunk exactly and
+#: plus one, and the repo's decode_32k context
+EDGES = [1, 63, 64, 65, 128, 129, 32768]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prepared", [False, True], ids=["host", "prepared"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(12, 2, 128), (32, 32, 80)],
+                         ids=["qwen2", "stablelm"])
+@pytest.mark.parametrize("length", EDGES)
+def test_paged_attention_edges(card, length, heads, dtype, prepared):
+    """The kernel against its plain version at the edge lengths (a second
+    sequence one token longer, within the table), over host tables or
+    over tables prepared with 2-page chunks (so 128 and 129 end a chunk
+    and start one)."""
+    qh, kvh, hd = heads
+    if length == 32768 and kvh == 32:
+        length = 8192      # 32 KV heads: keep the plain version's gather
+    lens = np.array([length, min(length + 1, 32768)], dtype=np.int32)
+    mp = -(-int(lens.max()) // 64)
+    rng = np.random.default_rng(length + qh)
+    num_pages = 2 * mp + 1
+    gen = torch.Generator(device=card).manual_seed(length)
+    q = torch.randn((2, qh, hd), generator=gen, device=card)
+    kp = torch.randn((num_pages, 64, kvh, hd), generator=gen,
+                     device=card).to(dtype)
+    vp = torch.randn((num_pages, 64, kvh, hd), generator=gen,
+                     device=card).to(dtype)
+    bt = rng.permutation(num_pages)[:2 * mp].reshape(2, mp).astype(np.int32)
+    bt[np.arange(mp)[None, :] >= -(-lens[:, None] // 64)] = -1
+    pops.reset_counts()
+    if prepared:
+        t = pops.prepare_tables(bt, lens, page_size=64, num_pages=num_pages,
+                                kv_heads=kvh, device=card, chunk_pages=2)
+        got = pops.paged_decode_attention(q, kp, vp, tables=t)
+    else:
+        got = pops.paged_decode_attention(q, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    want = pref.paged_decode_attention(q, kp, vp,
+                                       torch.from_numpy(bt).to(card),
+                                       torch.from_numpy(lens).to(card))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    c = pops.counts()
+    assert c["launches"] == 1 and c["tokens"] == int(lens.sum())
+    if prepared:
+        assert c["combine_launches"] == int(mp > 2)
 
 
 @pytest.mark.cuda

@@ -153,7 +153,7 @@ def test_write_prefill_and_append_step_equal_token_appends():
         step = bulk.append_step()
         pos = [t, t - 3]
         assert step.positions.tolist() == pos
-        np.testing.assert_array_equal(step.seq_lens, [t + 1, t - 2])
+        np.testing.assert_array_equal(step.tables.seq_lens, [t + 1, t - 2])
         for layer in range(3):
             bulk.write(layer, step, torch.stack([k[0, layer, t],
                                                  k[1, layer, t - 3]]),
@@ -379,3 +379,47 @@ def test_batcher_matches_reference():
         assert [r and r.rid for r in tb.active] == \
             [r and r.rid for r in jb.active]
         assert tb.busy() == jb.busy()
+
+
+def test_append_step_prepares_the_tables_once():
+    """A decode step's tables are checked and split once, for the cache's
+    pages, and every layer's attention reads that one object."""
+    cfg = tpkv.PagedKVConfig(page_size=4, max_pages_per_seq=5)
+    cache = tpkv.PagedKVCache(cfg, 12, 2, 2, 8, torch.float32, n_layers=3,
+                              device="cpu")
+    z = torch.zeros(3, 7, 2, 8)
+    cache.write_prefill(0, z, z)
+    cache.write_prefill(1, z[:, :4], z[:, :4])
+    step = cache.append_step()
+    t = step.tables
+    assert isinstance(t, pops.DecodeTables)
+    assert (t.num_pages, t.page_size, t.kv_heads) == (12, 4, 2)
+    np.testing.assert_array_equal(t.seq_lens, [8, 5])
+    np.testing.assert_array_equal(t.block_table, cache.block_table)
+    assert t.chunk_pages == 1 and t.n_items == 4 and t.dev is None
+    cache.append_step()       # the next step's tables are new; these stay
+    np.testing.assert_array_equal(t.seq_lens, [8, 5])
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "contiguous"])
+def test_head_dim_80_serves(paged):
+    """stablelm-3b's head_dim of 80 (32 query heads over 32 KV heads at
+    full width), here on the reduced model: the paged decode's greedy
+    tokens equal the contiguous decode's, one plain paged call per layer
+    and step."""
+    cfg = dataclasses.replace(tconfigs.reduced_config("stablelm-3b"),
+                              head_dim=80,
+                              dtype="float32")
+    assert cfg.n_heads == cfg.n_kv_heads
+    model = init_lm(cfg, 0, "cpu")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, 20) for _ in range(2)]
+    outs = {}
+    for p in (True, False):
+        reqs = [Request(i, x, max_new=5) for i, x in enumerate(prompts)]
+        pops.reset_counts()
+        tserve.run_server(cfg, reqs, 2, 26, paged=p, params=model)
+        outs[p] = [r.output for r in reqs]
+        assert pops.counts()["plain_calls"] == (2 * 4 * cfg.n_layers
+                                                if p else 0)
+    assert outs[paged] == outs[not paged]
