@@ -12,8 +12,9 @@ in full float32.  Phases, each raising on failure:
 1. device        the card's name and power limit (nvidia-smi);
 2. build         the half-gates, the NTT and the paged-attention CUDA
                  libraries from the sources in the checkout, one nvcc each,
-                 all at once (ptxas' registers and spills; the half-gates
-                 kernels' SASS counts from cuobjdump);
+                 all at once (ptxas' registers and spills, one line per NTT
+                 kernel instantiation; the half-gates kernels' SASS counts
+                 from cuobjdump);
 3. kernels       each half-gates kernel against its plain PyTorch version
                  on the card, bit for bit, at the main path's launch sizes
                  and beyond, gate ids up to 2^40, all four truth-table
@@ -22,10 +23,11 @@ in full float32.  Phases, each raising on failure:
                  (events), the bound, beside an empty kernel's;
 4. ntt kernels   the NTT forward, inverse and modular-product kernels
                  against their plain versions on the card, bit for bit:
-                 N = 1024 at 1, 3, 12 and 4096 rows, each chain prime, the
-                 special prime and all four stacked in one launch; N in
-                 {64, 256, 8192} at odd row counts; round trips; negacyclic
-                 products against the O(N^2) product at N = 64;
+                 N = 1024 at 1 to 24 and 4096 rows, each chain prime, the
+                 special prime and all four (or the chain's three) stacked
+                 in one launch; every other ring from 2 to 8192 at odd row
+                 counts; round trips; negacyclic products against the
+                 O(N^2) product at N = 64; a misaligned operand refused;
 5. parity        a small planned two-party merge on the card equals the
                  same job run with device="cpu" (outputs, AND count, table
                  digest), and a sync-swap job;
@@ -42,9 +44,9 @@ in full float32.  Phases, each raising on failure:
                  same width;
 9. record        each kernel timed at its main path's launch sizes, beside
                  its bound, its plain version and (the product) the
-                 PyTorch expression, the half-gates kernels also with the
-                 host's time per wrapper call and the empty kernel; the
-                 NTT kernels also at 4096 rows;
+                 PyTorch expression, with the host's time per wrapper call
+                 and the empty kernel; the NTT kernels also at 4096 rows,
+                 with a host breakdown of a wrapper call;
 10. profile      the GC path's shape at n=512 and the CKKS main job under
                  torch.profiler: device time by op, and the busy share;
 11. attn kernels the paged-attention kernels (split and combine) against
@@ -162,12 +164,23 @@ def phase_build() -> dict:
         info = lib.build_info()
         log(f"build: nvcc {info.seconds:.2f} s -> "
             f"{os.path.relpath(info.path, ROOT)}")
+        if lib is nk:
+            for name, c in ntt_code().items():
+                log(f"  ptxas {name}: {c.get('registers')} registers, "
+                    f"spill stores/loads {c.get('spill_stores')}/"
+                    f"{c.get('spill_loads')} bytes, stack frame "
+                    f"{c.get('stack')} bytes; sass {c.get('instructions')} "
+                    f"instructions, BAR {c.get('BAR')}, LDG {c.get('LDG')} "
+                    f"({c.get('LDG_before_BAR')} before the first BAR), STG "
+                    f"{c.get('STG')}, STS {c.get('STS')}, LDS {c.get('LDS')}")
+            continue
         for line in info.log.splitlines():
             if "Compiling entry" in line:
                 log(f"  ptxas: {line.strip().split('function ')[-1]}")
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     out = gate_code()
+    out["ntt_ptxas"] = ntt_code()
     out["attn_sass"] = attn_sass()
     for name, c in out["attn_sass"].items():
         log(f"  sass {name}: " + ", ".join(f"{op} {n}" for op, n in
@@ -188,6 +201,48 @@ def gate_code() -> dict:
     info = gk.build_info()
     return {"registers": ptxas_registers(info.log),
             "sass": sass_counts(info.path)}
+
+
+#: an NTT kernel instantiation in a mangled name: ntt_fwd_kernel<10> is the
+#: forward at N = 1024
+_NTT_ENTRY = re.compile(r"(ntt_fwd_kernel|ntt_inv_kernel|mul_mod_kernel)"
+                        r"(?:ILi(\d+)EE)?")
+
+
+def _ntt_name(mangled: str) -> str | None:
+    m = _NTT_ENTRY.search(mangled)
+    return m and m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+@functools.cache
+def ntt_code() -> dict:
+    """Registers, spill bytes and stack frame of every NTT kernel
+    instantiation (ptxas -v in the build's log) and its SASS counts of
+    instructions, barriers, global loads (before the first barrier too),
+    global stores and shared-memory stores and loads, by name."""
+    out, name = {}, None
+    for line in nk.build_info().log.splitlines():
+        if "Compiling entry" in line:
+            name = _ntt_name(line)
+            if name:
+                out[name] = {}
+        elif name and "stack frame" in line:
+            stack, stores, loads = (int(x) for x in
+                                    re.findall(r"(\d+) bytes", line)[:3])
+            out[name].update(stack=stack, spill_stores=stores,
+                             spill_loads=loads)
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used")[1].split()[0])
+    for mangled, c in sass_counts(nk.build_info().path).items():
+        name = _ntt_name(mangled)
+        if name in out:
+            out[name].update(
+                instructions=c["instructions"], BAR=c["BAR"],
+                LDG=c["ops"].get("LDG", 0),
+                LDG_before_BAR=c["LDG_before_BAR"],
+                STG=c["ops"].get("STG", 0), STS=c["ops"].get("STS", 0),
+                LDS=c["ops"].get("LDS", 0))
+    return out
 
 
 def _clocks() -> str:
@@ -233,8 +288,9 @@ def sass_counts(lib_path) -> dict:
     to itself left out), LOP3 and SHF (the logic and the rotations),
     shuffles, constant loads with a register index (a table or round key
     read by index would show here), branches, and the loops, as
-    [instructions in the body] per backward branch, and ``ops``, the count
-    of each opcode.  ``per_thread`` is the most one thread can issue (the
+    [instructions in the body] per backward branch, ``ops``, the count of
+    each opcode, and the barriers (BAR) with the global loads before the
+    first of them.  ``per_thread`` is the most one thread can issue (the
     count) where the kernel has no loop, else None.  Empty where the
     toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -250,7 +306,8 @@ def sass_counts(lib_path) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             cur = {"instructions": 0, "LOP3": 0, "SHF": 0, "SHFL": 0,
-                   "LDC_indexed": 0, "branches": 0, "loops": [], "ops": {}}
+                   "LDC_indexed": 0, "branches": 0, "loops": [], "ops": {},
+                   "LDG_before_BAR": 0, "BAR": 0}
             out[_kernel_name(line.split("Function :")[1].strip())] = cur
             continue
         mt = line_re.search(line)
@@ -269,8 +326,10 @@ def sass_counts(lib_path) -> dict:
                 cur["loops"].append((addr - int(target.group(1), 16)) // 16
                                     + 1)
         cur["instructions"] += 1
-        if op in ("LOP3", "SHF", "SHFL"):
+        if op in ("LOP3", "SHF", "SHFL", "BAR"):
             cur[op] += 1
+        if op == "LDG" and not cur["BAR"]:
+            cur["LDG_before_BAR"] += 1
         if op in ("LDC", "ULDC") and re.search(
                 r"c\[0x[0-9a-f]+\]\[U?R\d", args):
             cur["LDC_indexed"] += 1
@@ -731,6 +790,8 @@ CKKS_STATS = dict(CKKS_MAIN, workload="rstats", n=128)
 #: every budget swaps
 CKKS_PARITY = [("rmvmul", 4, 128, 3, 1), ("rstats", 8, 128, 4, 1),
                ("rmvmul", 4, 1024, 4, 1), ("rstats", 8, 1024, 4, 1)]
+#: rings checked beside 1024: every one the kernels take (2 .. MAX_N)
+NTT_RINGS = (2, 4, 8, 16, 32, 64, 128, 256, 512, 2048, 4096, 8192)
 NTT_KERNELS = {   # name -> (profiler name, TPU kernel line in kernel.py)
     "ntt_forward": ("ntt_fwd_kernel", 67),
     "ntt_inverse": ("ntt_inv_kernel", 86),
@@ -790,9 +851,11 @@ def phase_ntt_kernels(dev) -> dict:
     rng = np.random.default_rng(1024)
     errs = {k: 0 for k in NTT_KERNELS}
     chain = BENCH_CKKS.primes + [BENCH_CKKS.special_prime]
-    cases = [(1024, [q], (r, 1024)) for q in chain for r in (1, 3, 12, 4096)]
-    cases += [(1024, chain, (r, 4, 1024)) for r in (1, 3, 12, 4096)]
-    for n in (64, 256, 8192):
+    cases = [(1024, [q], (r, 1024)) for q in chain
+             for r in (1, 2, 3, 12, 24, 4096)]
+    cases += [(1024, chain, (r, 4, 1024)) for r in (1, 3, 6, 12, 4096)]
+    cases += [(1024, chain[:3], (r, 3, 1024)) for r in (1, 3, 8)]
+    for n in NTT_RINGS:
         p = CkksParams(n_ring=n, levels=2)
         ps = p.primes + [p.special_prime]
         cases += [(n, ps, (r, 4, n)) for r in (1, 3, 5, 7)]
@@ -821,13 +884,23 @@ def phase_ntt_kernels(dev) -> dict:
         want = _schoolbook(a[i].tolist(), b[i].tolist(), q)
         if c[i].tolist() != want:
             raise AssertionError("negacyclic product != O(N^2) product")
+    # the kernels read rows 16 bytes at a time: an operand that starts 8
+    # bytes into an allocation is refused, not read misaligned
+    odd = torch.zeros(2 * 1024 + 1, dtype=torch.int64, device=dev)[1:]
+    for fn in (nops.ntt_forward, nops.ntt_inverse):
+        try:
+            fn(odd.view(2, 1024), chain[0])
+        except ValueError:
+            continue
+        raise AssertionError(f"{fn.__name__} took a misaligned operand")
     torch.cuda.synchronize()
     log(f"ntt kernels: ntt_forward, ntt_inverse and mul_mod equal their "
         f"plain versions bit for bit (tolerance 0: integer arithmetic) in "
-        f"{len(cases)} cases: N=1024 at 1/3/12/4096 rows for q0, q1, q2, "
-        f"P={BENCH_CKKS.special_prime} and all four in one launch; N in "
-        f"(64, 256, 8192) at odd row counts; round trips; negacyclic "
-        f"products at N=64 equal the O(N^2) product")
+        f"{len(cases)} cases: N=1024 at 1/2/3/12/24/4096 rows for q0, q1, "
+        f"q2, P={BENCH_CKKS.special_prime}, all four in one launch and the "
+        f"chain's three; N in {NTT_RINGS} at odd row counts; round trips; "
+        f"negacyclic products at N=64 equal the O(N^2) product; a "
+        f"misaligned operand refused")
     return errs
 
 
@@ -954,8 +1027,10 @@ def _ntt_timing(kind: str, rows: int, n: int, dev, rng, reps: int) -> dict:
     if err:
         raise AssertionError(f"{kind} != plain at {rows} rows: {err}")
     ops_n, bytes_n = _ntt_work(kind, rows, n)
-    ms = _kernel_ms(kfn, NTT_KERNELS[kind][0], reps) or _device_ms(kfn, reps)
-    return {"ms": ms, "plain_ms": _device_ms(pfn, max(reps // 20, 5)),
+    host_ms = _device_ms(kfn, reps)
+    ms = _kernel_ms(kfn, NTT_KERNELS[kind][0], reps) or host_ms
+    return {"ms": ms, "host_ms": host_ms,
+            "plain_ms": _device_ms(pfn, max(reps // 20, 5)),
             # the same product as one PyTorch expression: two calls
             "library_ms": _device_ms(lambda: (a * b) % qcol, reps)
             if kind == "mul_mod" else None,
@@ -963,16 +1038,58 @@ def _ntt_timing(kind: str, rows: int, n: int, dev, rng, reps: int) -> dict:
             "bytes_ms": bytes_n / HBM_BYTES_PER_S * 1e3, "err": err}
 
 
+def _ntt_wrapper_costs(dev, reps: int = 2000) -> dict:
+    """Host µs of the pieces of a forward wrapper call on 12 rows of
+    N = 1024 (4 stacks of the chain's three primes, the main path's most
+    common launch), each on the host's clock over back-to-back calls
+    (median of five rounds taken in turns): the operand's checks; the
+    primes' checks and the table lookup that every call made before they
+    were remembered, and the one lookup of both that it makes now; the
+    output's allocation; the current stream; the ctypes call alone (no
+    rows: it launches nothing); and the whole call, as it is and with the
+    remembered primes forgotten before each call."""
+    primes = tuple(BENCH_CKKS.primes)
+    a = _residues(np.random.default_rng(3), primes, (4, 3, 1024), dev)
+    lib = nk.library()
+    t = nops.tables(primes, 1024, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr, tw, cs = a.data_ptr(), t.tw.data_ptr(), t.consts.data_ptr()
+
+    def forgotten():
+        nops._prepared.clear()
+        return nops.ntt_forward(a, primes)
+    pieces = {
+        "check": lambda: nops._check(a, "a"),
+        "validate_and_tables": lambda: nops.tables(
+            nops._validate(primes, 1024), 1024, a.device),
+        "prepare": lambda: nops._prepare(a, primes),
+        "output": lambda: torch.empty_like(a),
+        "stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "ctypes": lambda: lib.ntt_forward(ptr, ptr, tw, cs, 3, 10, 0,
+                                          stream),
+        "call": lambda: nops.ntt_forward(a, primes),
+        "call_validating": forgotten,
+    }
+    return _host_us(pieces, reps)
+
+
 def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
     """Each NTT kernel at every launch size of the CKKS main path,
-    launch-weighted as kernel_record does, and at 4096 rows."""
+    launch-weighted as kernel_record does (device time from the profiler,
+    the host's pace per back-to-back wrapper call from events), and at
+    4096 rows, beside the empty kernel's floor, the clocks and a host
+    breakdown of a wrapper call."""
     rng = np.random.default_rng(12)
     n = BENCH_CKKS.n_ring
-    rows_out, big = [], {}
+    rows_out = []
+    big = {"empty": _empty_launch(dev, 200), "clocks": _clocks()}
+    log(f"  clocks (sm, max sm, temperature, power): {big['clocks']}")
+    log(f"  empty kernel (the launch floor): {big['empty']['ms']} ms "
+        f"(profiler), {big['empty']['host_ms']:.5f} ms per call (events)")
     for kind, (kname, line) in NTT_KERNELS.items():
         sizes = counts["launch_sizes"][kind]
         total = sum(sizes.values())
-        acc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+        acc = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "ops_ms": 0.0, "bytes_ms": 0.0}
         for r, k in sizes.items():
             one = _ntt_timing(kind, r, n, dev, rng, 200)
@@ -991,18 +1108,27 @@ def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
             "bound_by": "operations" if acc["ops_ms"] >= acc["bytes_ms"]
             else "bytes",
             "library_ms": acc["library_ms"] if kind == "mul_mod" else None})
+        big[f"{kind}_main"] = {k: acc[k] for k in ("ms", "host_ms",
+                                                   "plain_ms")}
+        big[f"{kind}_main"]["bound_ms"] = bound
         log(f"  {kind} over the CKKS main path's launch sizes "
-            f"{dict(sorted(sizes.items()))}: {acc['ms']:.5f} ms per launch "
+            f"{dict(sorted(sizes.items()))}: {acc['ms']:.6f} ms per launch "
             f"(bound {bound:.3e} ms, plain {acc['plain_ms']:.4f} ms"
             + (f", (a * b) % q {acc['library_ms']:.4f} ms"
-               if kind == "mul_mod" else "") + ")")
+               if kind == "mul_mod" else "") + f"), {acc['host_ms']:.5f} "
+            f"ms per wrapper call (events)")
         b4k = max(at4k["ops_ms"], at4k["bytes_ms"])
         by = "operations" if at4k["ops_ms"] >= at4k["bytes_ms"] else "bytes"
         log(f"  {kind} at 4096 rows of N=1024: {at4k['ms']:.5f} ms (bound "
             f"{b4k:.4f} ms by {by}, {b4k / at4k['ms']:.3g} of it), plain "
             f"{at4k['plain_ms']:.4f} ms"
             + (f", (a * b) % q {at4k['library_ms']:.4f} ms"
-               if kind == "mul_mod" else ""))
+               if kind == "mul_mod" else "")
+            + f", {at4k['host_ms']:.5f} ms per wrapper call (events)")
+    big["wrapper_us"] = _ntt_wrapper_costs(dev)
+    log("  host µs per piece of a forward wrapper call on 12 rows (host "
+        "clock, back to back): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in big["wrapper_us"].items()))
     return rows_out, big
 
 
@@ -1722,7 +1848,7 @@ def main() -> None:
         "gates_timing": gate_timing, "gates_main_launch": gate_launch,
         "parity": parity,
         "profile": profiled, "ckks_main": ckks_metrics,
-        "ntt_4096_rows": ntt_big, "ckks_parity": ckks_parity,
+        "ntt_record": ntt_big, "ckks_parity": ckks_parity,
         "ckks_profile": ckks_profiled, "serve_main": serve_metrics,
         "serve_parity": serve_parity, "attn": attn_timing,
         "serve_stablelm": stablelm,

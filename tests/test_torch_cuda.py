@@ -90,14 +90,24 @@ def _rns_rows(rng, primes, rows, n, dev):
     return torch.from_numpy(x).to(dev)
 
 
+#: (N, stacks, primes a stack): every prime of a level and the special
+#: prime; the CKKS main path's launches of 3, 12 and 24 rows at N = 1024
+#: (one prime, and the chain's three), N = 2, and 4096 rows
+NTT_CASES = [(64, 3, 4), (1024, 1, 4), (1024, 12, 4), (8192, 5, 4),
+             (1024, 3, 1), (1024, 12, 1), (1024, 24, 1), (1024, 1, 3),
+             (1024, 4, 3), (1024, 8, 3), (2, 3, 1), (2, 5, 4),
+             (1024, 4096, 1), (1024, 1024, 4)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,rows", [(64, 3), (1024, 1), (1024, 12),
-                                    (8192, 5)])
-def test_ntt_kernels_match_plain(card, n, rows):
-    """The three NTT kernels equal their plain versions bit for bit, every
-    prime of a level and the special prime in one launch."""
+@pytest.mark.parametrize("n,rows,n_primes", NTT_CASES,
+                         ids=[f"{n}-{r}" if p == 4 else f"{n}-{r}x{p}"
+                              for n, r, p in NTT_CASES])
+def test_ntt_kernels_match_plain(card, n, rows, n_primes):
+    """The three NTT kernels equal their plain versions bit for bit, one
+    launch each, with ``rows`` stacks of ``n_primes`` primes in it."""
     p = CkksParams(n_ring=n, levels=2)
-    primes = p.primes + [p.special_prime]
+    primes = (p.primes + [p.special_prime])[:n_primes]
     rng = np.random.default_rng(n + rows)
     a = _rns_rows(rng, primes, rows, n, card)
     b = _rns_rows(rng, primes, rows, n, card)
@@ -112,6 +122,18 @@ def test_ntt_kernels_match_plain(card, n, rows):
     c = nops.counts()
     assert c["launches"] == {k: 1 for k in nops.KINDS}
     assert c["rows"] == {k: rows * len(primes) for k in nops.KINDS}
+
+
+@pytest.mark.cuda
+def test_ntt_refuses_misaligned_operand(card):
+    """The transforms read two coefficients at a time, 16 bytes: an operand
+    starting 8 bytes into its storage raises instead of reading
+    misaligned."""
+    q = CkksParams(n_ring=64, levels=2).primes[0]
+    odd = torch.zeros(2 * 64 + 1, dtype=torch.int64, device=card)[1:]
+    for fn in (nops.ntt_forward, nops.ntt_inverse):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(odd.view(2, 64), q)
 
 
 @pytest.mark.cuda

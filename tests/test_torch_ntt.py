@@ -216,27 +216,134 @@ def test_bound_work_figures():
 # ---------------------------------------------------------------------------
 
 _HOST_HARNESS = r"""
+#include <stddef.h>
+#include <vector>
 #include "ntt_arith.cuh"
+#include "ntt_sched.cuh"
+using namespace ntt_sched;
+
+// a CTA of the card's kernels, thread by thread: every thread runs a phase
+// before any thread runs the next (the kernels' __syncthreads)
+template <int LOGN, bool INV>
+void run_rows(const int64_t* in, int64_t* out, const uint32_t* tw,
+              const NttPrime* primes, int n_primes, long rows) {
+  using Pl = Plan<LOGN, INV>;
+  std::vector<NttThread<LOGN, INV>> th(Pl::T);
+  std::vector<uint32_t> smem(2 * Pl::N);
+  for (long r = 0; r < rows; ++r) {
+    const int p = (int)(r % n_primes);
+    const ntt_u4* src = reinterpret_cast<const ntt_u4*>(in + r * Pl::N);
+    ntt_u4* dst = reinterpret_cast<ntt_u4*>(out + r * Pl::N);
+    const ntt_u2* tab =
+        reinterpret_cast<const ntt_u2*>(tw) + ((size_t)p * 2 + INV) * Pl::N;
+    static_for<0, Pl::NP>([&](auto e) {
+      for (int t = 0; t < Pl::T; ++t)
+        th[t].template phase<decltype(e)::value>(t, src, dst, tab,
+                                                 primes + p, smem.data());
+    });
+  }
+}
+
+// the most words of one bank that a warp's access to an exchange touches
+// (1: every access of 32 lanes hits 32 banks)
+template <int LOGN, bool INV, int E, int P>
+int bank_ways() {
+  using Pl = Plan<LOGN, INV>;
+  using Th = NttThread<LOGN, INV>;
+  int worst = 1;
+  static_for<0, Pl::R>([&](auto k) {
+    for (int w = 0; w < Pl::T; w += 32) {
+      std::vector<std::vector<uint32_t>> bank(32);
+      for (int t = w; t < w + 32 && t < Pl::T; ++t) {
+        const uint32_t a = Th::template smem_index<E, P, decltype(k)::value>(t);
+        auto& b = bank[a % 32];
+        bool seen = false;
+        for (uint32_t x : b) seen = seen || x == a;
+        if (!seen) b.push_back(a);
+        worst = (int)b.size() > worst ? (int)b.size() : worst;
+      }
+    }
+  });
+  return worst;
+}
+
+template <int LOGN, bool INV>
+void info(int* out) {
+  using Pl = Plan<LOGN, INV>;
+  int worst = 1;
+  static_for<0, Pl::NP - 1>([&](auto e) {
+    constexpr int E = decltype(e)::value;
+    const int w = bank_ways<LOGN, INV, E, E>();      // pass E writes
+    const int r = bank_ways<LOGN, INV, E, E + 1>();  // pass E+1 reads
+    worst = w > worst ? w : worst;
+    worst = r > worst ? r : worst;
+  });
+  out[0] = Pl::T;
+  out[1] = Pl::R;
+  out[2] = Pl::NP - 1;        // barriers
+  out[3] = worst;
+  out[4] = slots(LOGN, INV, true);
+  out[5] = Pl::kAhead;
+}
+
+template <bool INV, int L = 1>
+int dispatch(int logn, const int64_t* in, int64_t* out, const uint32_t* tw,
+             const NttPrime* primes, int n_primes, long rows, int* inf) {
+  if constexpr (L > kMaxLogN) {
+    return 1;
+  } else {
+    if (logn != L)
+      return dispatch<INV, L + 1>(logn, in, out, tw, primes, n_primes, rows,
+                                  inf);
+    if (inf) info<L, INV>(inf);
+    else run_rows<L, INV>(in, out, tw, primes, n_primes, rows);
+    return 0;
+  }
+}
+
 extern "C" {
-// whole transforms of one row, stage by stage and butterfly by butterfly
-// in the order one thread of the kernel would run them
+// whole transforms of one row, stage by stage (m groups of half-width
+// 2^lt, twiddle psi[m + i] for group i) and butterfly by butterfly, as
+// repro.protocols.ckks.ntt's stage loops run them
 void forward(uint32_t* v, int logn, const uint32_t* psi, const uint32_t* ps,
              uint32_t q) {
   const int n = 1 << logn;
   for (int lt = logn - 1, m = 1; lt >= 0; --lt, m <<= 1)
-    for (int b = 0; b < n / 2; ++b) fwd_butterfly(v, lt, m, b, psi, ps, q);
+    for (int b = 0; b < n / 2; ++b) {
+      const int i = b >> lt, j = (i << (lt + 1)) + (b & ((1 << lt) - 1));
+      ct_butterfly(v[j], v[j + (1 << lt)], psi[m + i], ps[m + i], q);
+    }
 }
 void inverse(uint32_t* v, int logn, const uint32_t* psi, const uint32_t* ps,
              uint32_t q, uint32_t n_inv, uint32_t n_inv_shoup) {
   const int n = 1 << logn;
   for (int lt = 0, h = n / 2; h >= 1; ++lt, h >>= 1)
-    for (int b = 0; b < n / 2; ++b) inv_butterfly(v, lt, h, b, psi, ps, q);
+    for (int b = 0; b < n / 2; ++b) {
+      const int i = b >> lt, j = (i << (lt + 1)) + (b & ((1 << lt) - 1));
+      gs_butterfly(v[j], v[j + (1 << lt)], psi[h + i], ps[h + i], q);
+    }
   for (int k = 0; k < n; ++k) v[k] = shoup_mul(v[k], n_inv, n_inv_shoup, q);
 }
 void product(const uint32_t* a, const uint32_t* b, uint32_t* out, int n,
              uint32_t q, uint32_t mu, uint32_t k) {
-  NttPrime p = {q, 0, 0, mu, k, {0, 0, 0}};
+  NttPrime p = {q, 0, 0, mu, k, 0, 0, 0};
   for (int i = 0; i < n; ++i) out[i] = mul_mod(a[i], b[i], p);
+}
+// the card's transform kernels (ntt.cu) with their arguments: int64 rows,
+// the wrapper's (P, 2, N, 2) twiddle table and (P, 8) NttPrime rows
+int sched_transform(int inv, const int64_t* in, int64_t* out,
+                    const uint32_t* tw, const uint32_t* primes, int n_primes,
+                    int logn, long rows) {
+  const NttPrime* pr = reinterpret_cast<const NttPrime*>(primes);
+  return inv ? dispatch<true>(logn, in, out, tw, pr, n_primes, rows, nullptr)
+             : dispatch<false>(logn, in, out, tw, pr, n_primes, rows,
+                               nullptr);
+}
+// threads, registers a thread, barriers, worst bank ways of an exchange,
+// twiddles a thread loads, passes loaded ahead
+int sched_info(int inv, int logn, int* out) {
+  return inv ? dispatch<true>(logn, 0, 0, 0, 0, 1, 0, out)
+             : dispatch<false>(logn, 0, 0, 0, 0, 1, 0, out);
 }
 }
 """
@@ -250,14 +357,16 @@ def host_lib(tmp_path_factory):
     src = d / "host.cpp"
     src.write_text(_HOST_HARNESS)
     path = d / "libhost.so"
-    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+    subprocess.run([cxx, "-O0", "-std=c++17", "-shared", "-fPIC",
                     f"-I{tkernel.CSRC}", "-o", str(path), str(src)],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(path))
-    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    P, I, U, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_long
     lib.forward.argtypes = [P, I, P, P, U]
     lib.inverse.argtypes = [P, I, P, P, U, U, U]
     lib.product.argtypes = [P, P, P, I, U, U, U]
+    lib.sched_transform.argtypes = [I, P, P, P, P, I, I, L]
+    lib.sched_info.argtypes = [I, I, P]
     return lib
 
 
@@ -297,3 +406,114 @@ def test_cuda_source_arithmetic_on_host(host_lib, q):
                      edge.size, q, mu, k)
     assert np.array_equal(out[:edge.size].astype(np.uint64),
                           edge * edge[::-1] % np.uint64(q))
+
+
+def _sched(host_lib, inverse: bool, a: np.ndarray, primes) -> np.ndarray:
+    """The card's transform, thread by thread on the host, over the
+    wrapper's own tables; a is (rows, N), row r mod primes[r % P]."""
+    n = a.shape[-1]
+    t = tops.tables(tuple(primes), n, torch.device("cpu"))
+    tw = np.ascontiguousarray(t.tw.numpy())
+    c = np.ascontiguousarray(t.consts.numpy())
+    x = np.ascontiguousarray(a.astype(np.int64))
+    out = np.full_like(x, -1)
+    assert host_lib.sched_transform(int(inverse), x.ctypes.data,
+                                    out.ctypes.data, tw.ctypes.data,
+                                    c.ctypes.data, len(primes),
+                                    n.bit_length() - 1, x.shape[0]) == 0
+    return out.astype(np.uint64)
+
+
+@pytest.mark.parametrize("q", CHAIN + [SPECIAL])
+def test_schedule_on_host_matches_numpy(host_lib, q):
+    """ntt_sched.cuh's per-thread code (the card's kernels without the
+    card): forward and inverse at N = 1024 equal the NumPy transform bit for
+    bit, for every prime of the benchmark width, P = 1073750017 included."""
+    rng = np.random.default_rng(q % 1013)
+    a = _residues(rng, q, (5, 1024))
+    f = _sched(host_lib, False, a, [q])
+    assert np.array_equal(f, npntt.ntt_forward(a, q))
+    assert np.array_equal(_sched(host_lib, True, f, [q]), a)
+    assert np.array_equal(_sched(host_lib, True, a, [q]),
+                          npntt.ntt_inverse(a, q))
+    edge = np.array([[0] * 1024, [q - 1] * 1024], dtype=np.uint64)
+    assert np.array_equal(_sched(host_lib, False, edge, [q]),
+                          npntt.ntt_forward(edge, q))
+    assert np.array_equal(_sched(host_lib, True, edge, [q]),
+                          npntt.ntt_inverse(edge, q))
+
+
+def test_schedule_on_host_stacked_primes(host_lib):
+    """Row r takes prime r % P: the four primes of a level in one call."""
+    primes = CHAIN + [SPECIAL]
+    rng = np.random.default_rng(17)
+    a = np.stack([_residues(rng, q, (3, 1024)) for q in primes], axis=1)
+    f = _sched(host_lib, False, a.reshape(-1, 1024), primes).reshape(a.shape)
+    inv = _sched(host_lib, True, f.reshape(-1, 1024), primes)
+    for j, q in enumerate(primes):
+        assert np.array_equal(f[:, j], npntt.ntt_forward(a[:, j], q))
+    assert np.array_equal(inv.reshape(a.shape), a)
+
+
+RINGS = [1 << k for k in range(1, 14)]
+
+
+@pytest.mark.parametrize("n", RINGS)
+def test_schedule_on_host_every_ring(host_lib, n):
+    """Every ring the kernels take, N = 2 .. MAX_N, at one prime: the same
+    kernel family (its own threads, registers and passes at each N)."""
+    assert RINGS[-1] == tops.MAX_N
+    q = gen_primes(n, [29])[0]
+    rng = np.random.default_rng(n)
+    a = _residues(rng, q, (3, n))
+    f = _sched(host_lib, False, a, [q])
+    assert np.array_equal(f, npntt.ntt_forward(a, q))
+    assert np.array_equal(_sched(host_lib, True, f, [q]), a)
+    assert np.array_equal(_sched(host_lib, True, a, [q]),
+                          npntt.ntt_inverse(a, q))
+
+
+@pytest.mark.parametrize("n", RINGS)
+def test_schedule_shape(host_lib, n):
+    """Threads and registers a row, barriers, and shared-memory banks: every
+    warp access of every exchange hits 32 banks; N = 1024 takes 128 threads
+    of 8 coefficients and 4 barriers (a stage a barrier took 10)."""
+    for inverse in (False, True):
+        got = np.zeros(6, np.int32)
+        assert host_lib.sched_info(int(inverse), n.bit_length() - 1,
+                                   got.ctypes.data) == 0
+        threads, regs, barriers, ways, twiddles, ahead = (int(x) for x in got)
+        assert threads * regs == n and ways == 1
+        assert twiddles < regs * (barriers + 1)
+        if n == 1024:
+            assert (threads, regs, barriers, ahead) == (128, 8, 4, 4)
+        if n == 8192:
+            assert (threads, regs, ahead) == (512, 16, 1)
+
+
+@pytest.mark.parametrize("n", [2, 1024, 8192])
+def test_folded_constants_match_python_ints(n):
+    """ops.tables' NttPrime rows: psi^-1[1] N^-1 mod q and its Shoup
+    quotient (the inverse's last stage with N^-1 folded in), beside q,
+    N^-1, its quotient and Barrett's mu and k, in Python ints."""
+    primes = tuple(CkksParams(n_ring=max(n, 64), levels=2).primes) \
+        if n >= 64 else (gen_primes(n, [29])[0],)
+    if n == 1024:
+        primes = tuple(CHAIN + [SPECIAL])
+    t = tops.tables(primes, n, torch.device("cpu"))
+    got = t.consts.numpy().view(np.uint32).astype(object)
+    for row, q in zip(got, primes):
+        _, psi_inv, n_inv = npntt.ntt_tables(q, n)
+        assert n_inv * n % q == 1
+        w1 = int(psi_inv[1]) * n_inv % q
+        k = q.bit_length()
+        assert list(row) == [q, n_inv, (n_inv << 32) // q,
+                             (1 << 2 * k) // q, k, w1, (w1 << 32) // q, 0]
+    tw = t.tw.numpy().view(np.uint32).astype(object)
+    assert tw.shape == (len(primes), 2, n, 2)
+    for i, q in enumerate(primes):
+        psi, psi_inv, _ = npntt.ntt_tables(q, n)
+        for d, w in enumerate((psi, psi_inv)):
+            assert [int(x) for x in tw[i, d, :, 0]] == [int(x) for x in w]
+            assert [int(x) for x in tw[i, d, :, 1]] == \
+                [(int(x) << 32) // q for x in w]
