@@ -13,21 +13,24 @@ in full float32.  Phases, each raising on failure:
 2. build         the half-gates, the NTT and the paged-attention CUDA
                  libraries from the sources in the checkout, one nvcc each,
                  all at once (ptxas' registers and spills, one line per NTT
-                 kernel instantiation; the half-gates kernels' SASS counts
-                 from cuobjdump);
+                 kernel instantiation, the fused ntt_mul_kernel's among
+                 them; the half-gates kernels' SASS counts from cuobjdump);
 3. kernels       each half-gates kernel against its plain PyTorch version
                  on the card, bit for bit, at the main path's launch sizes
                  and beyond, gate ids up to 2^40, all four truth-table
                  rows; at 16, 32, 64 and 2^20 gates its device time per
                  launch (profiler), the host's time per wrapper call
                  (events), the bound, beside an empty kernel's;
-4. ntt kernels   the NTT forward, inverse and modular-product kernels
-                 against their plain versions on the card, bit for bit:
-                 N = 1024 at 1 to 24 and 4096 rows, each chain prime, the
-                 special prime and all four (or the chain's three) stacked
-                 in one launch; every other ring from 2 to 8192 at odd row
-                 counts; round trips; negacyclic products against the
-                 O(N^2) product at N = 64; a misaligned operand refused;
+4. ntt kernels   the NTT forward, inverse, modular-product and fused
+                 negacyclic-product kernels against their plain versions
+                 on the card, bit for bit: N = 1024 at 1 to 24 and 4096
+                 rows, each chain prime, the special prime and all four
+                 (or the chain's three) stacked in one launch; every other
+                 ring from 2 to 8192 at odd row counts; round trips;
+                 negacyclic products against the O(N^2) product at N = 64;
+                 the fused kernel's T-term sums (T = 1..4), every cipher
+                 shape and runs longer than a run carries; misaligned
+                 operands refused;
 5. parity        a small planned two-party merge on the card equals the
                  same job run with device="cpu" (outputs, AND count, table
                  digest), and a sync-swap job;
@@ -40,13 +43,18 @@ in full float32.  Phases, each raising on failure:
 8. ckks main     rmvmul n=24 at ring 1024, levels 2, budget 0.4, 8
                  prefetch pages, checked against the oracle (atol 2e-2),
                  with the plan's 646/309 swaps and every transform and
-                 product through the kernels; then rstats n=128 at the
-                 same width;
+                 product through the kernels, in the launches its
+                 instruction mix gives (one fused launch an encryption,
+                 decryption, tensor-product call and relinearization; the
+                 standalone ones in key generation only); then rstats
+                 n=128 at the same width;
 9. record        each kernel timed at its main path's launch sizes, beside
                  its bound, its plain version and (the product) the
                  PyTorch expression, with the host's time per wrapper call
                  and the empty kernel; the NTT kernels also at 4096 rows,
-                 with a host breakdown of a wrapper call;
+                 with a host breakdown of a wrapper call; the fused kernel
+                 over its launch shapes, beside the three standalone
+                 launches each one replaces, timed at the same sizes;
 10. profile      the GC path's shape at n=512 and the CKKS main job under
                  torch.profiler: device time by op, and the busy share;
 11. attn kernels the paged-attention kernels (split and combine) against
@@ -116,6 +124,8 @@ from repro_torch.kernels.paged_attn import ops as pops  # noqa: E402
 from repro_torch.kernels.paged_attn import ref as pref  # noqa: E402
 from repro_torch.launch.serve import paged_cache, run_server  # noqa: E402
 from repro_torch.models import init_lm, lm_decode, lm_prefill  # noqa: E402
+from repro_torch.core.bytecode import Op  # noqa: E402
+from repro_torch.protocols.ckks import cipher as ck  # noqa: E402
 from repro_torch.protocols.ckks.driver import homomorphic_ops  # noqa: E402
 from repro_torch.protocols.ckks.params import CkksParams  # noqa: E402
 from repro_torch.serve.serve_step import Request, serve_step  # noqa: E402
@@ -205,13 +215,16 @@ def gate_code() -> dict:
 
 #: an NTT kernel instantiation in a mangled name: ntt_fwd_kernel<10> is the
 #: forward at N = 1024
-_NTT_ENTRY = re.compile(r"(ntt_fwd_kernel|ntt_inv_kernel|mul_mod_kernel)"
-                        r"(?:ILi(\d+)EE)?")
+_NTT_ENTRY = re.compile(r"(ntt_fwd_kernel|ntt_inv_kernel|mul_mod_kernel|"
+                        r"ntt_mul_kernel)(?:I((?:Li\d+E)+)E)?")
 
 
 def _ntt_name(mangled: str) -> str | None:
     m = _NTT_ENTRY.search(mangled)
-    return m and m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    if not m:
+        return None
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 @functools.cache
@@ -792,11 +805,15 @@ CKKS_PARITY = [("rmvmul", 4, 128, 3, 1), ("rstats", 8, 128, 4, 1),
                ("rmvmul", 4, 1024, 4, 1), ("rstats", 8, 1024, 4, 1)]
 #: rings checked beside 1024: every one the kernels take (2 .. MAX_N)
 NTT_RINGS = (2, 4, 8, 16, 32, 64, 128, 256, 512, 2048, 4096, 8192)
-NTT_KERNELS = {   # name -> (profiler name, TPU kernel line in kernel.py)
-    "ntt_forward": ("ntt_fwd_kernel", 67),
-    "ntt_inverse": ("ntt_inv_kernel", 86),
-    "mul_mod": ("mul_mod_kernel", 108),
+NTT_KERNELS = {   # name -> (profiler name, the TPU kernel it replaces)
+    "ntt_forward": ("ntt_fwd_kernel", "src/repro/kernels/ntt/kernel.py:67"),
+    "ntt_inverse": ("ntt_inv_kernel", "src/repro/kernels/ntt/kernel.py:86"),
+    "mul_mod": ("mul_mod_kernel", "src/repro/kernels/ntt/kernel.py:108"),
+    # the composite of the three (ops.negacyclic_mul), in one launch
+    "ntt_mul": ("ntt_mul_kernel", "src/repro/kernels/ntt/ops.py:49"),
 }
+#: the three standalone kernels a fused launch replaces
+UNFUSED = ("ntt_forward", "mul_mod", "ntt_inverse")
 
 
 def _residues(rng: np.random.Generator, primes, shape, dev) -> torch.Tensor:
@@ -811,7 +828,9 @@ def _residues(rng: np.random.Generator, primes, shape, dev) -> torch.Tensor:
 
 def _ntt_plain(kind: str, a: torch.Tensor, b, primes) -> torch.Tensor:
     """The plain version on the card's tensors, with the wrapper's own
-    device tables."""
+    device tables (ntt_mul: the product of a and b, a row each)."""
+    if kind == "ntt_mul":
+        return _mul_plain([a, b], [], ck.ONE_TERM, primes)
     n = a.shape[-1]
     ps = tuple(primes) if isinstance(primes, (list, tuple)) else (primes,)
     t = nops.tables(ps, n, a.device)
@@ -821,14 +840,160 @@ def _ntt_plain(kind: str, a: torch.Tensor, b, primes) -> torch.Tensor:
     elif kind == "ntt_inverse":
         out = nref.ntt_inverse(v, t.q, t.psi_inv, t.n_inv)
     else:
-        out = nref.mul_mod(v, b.reshape(v.shape), t.q)
+        out = nref.mul_mod(v, b.reshape(-1, len(ps), n), t.q)
     return out.reshape(a.shape)
 
 
 def _ntt_kernel(kind: str, a, b, primes) -> torch.Tensor:
     if kind == "mul_mod":
         return nops.mul_mod(a, b, primes)
+    if kind == "ntt_mul":
+        return nops.ntt_mul([a, b], [], ck.ONE_TERM, primes)
     return getattr(nops, kind)(a, primes)
+
+
+def _mul_plain(coef, ntt, terms, primes) -> torch.Tensor:
+    """ntt_mul's plain version (ref.ntt_mul: forward, products, sums,
+    inverse) on the card's tensors, shaped as the wrapper's output; the
+    operands as the wrapper takes them (stacks, or sequences)."""
+    k = 1 if isinstance(primes, int) else 2
+
+    def rows(x):
+        if x is None:
+            return []
+        return list(x.unbind(-k - 1)) if isinstance(x, torch.Tensor) \
+            else list(x)
+    cs, ns = rows(coef), rows(ntt)
+    ops_ = cs + ns
+    ps = (primes,) if k == 1 else tuple(primes)
+    tail = tuple(ops_[0].shape[-k:])
+    t = nops.tables(ps, tail[-1], ops_[0].device)
+    lead = tuple(torch.broadcast_shapes(*(x.shape[:-k] for x in ops_)))
+    xs = [x.expand(*lead, *tail).reshape(-1, len(ps), tail[-1])
+          for x in ops_]
+    out = nref.ntt_mul(xs, len(cs), terms, t.q, t.psi, t.psi_inv, t.n_inv)
+    return out.reshape(*lead, len(terms), *tail)
+
+
+def _mul_check(coef, ntt, terms, primes, what: str) -> int:
+    """The fused kernel against its plain version on one job, bit for bit;
+    returns the max_abs_err (0)."""
+    try:
+        got = nops.ntt_mul(coef, ntt, terms, primes)
+    except RuntimeError as e:
+        raise RuntimeError(f"ntt_mul ({what}): {e}") from e
+    err = _max_abs_err((got,), (_mul_plain(coef, ntt, terms, primes),))
+    if err:
+        raise AssertionError(f"ntt_mul != plain ({what}): max_abs_err {err}")
+    return err
+
+
+def _cipher_jobs(rng, dev) -> list:
+    """The fused launches of the five cipher ops at the benchmark width, as
+    cipher.py makes them: operand stacks, views of the secret's rows and of
+    the keys: (what, coef, ntt, terms, primes)."""
+    p = BENCH_CKKS
+    chain = p.primes + [p.special_prime]
+    jobs = []
+    spow = _residues(rng, chain, (2, len(chain), p.n_ring), dev)
+    for lvl in (2, 1):
+        primes = tuple(p.level_primes(lvl))
+        P = len(primes)
+        basis = primes + (p.special_prime,)
+        ae = _residues(rng, primes, (2, P, p.n_ring), dev)
+        jobs.append((f"encrypt/decrypt P={P}", ae[:1], spow[:1, :P],
+                     ck.ONE_TERM, primes))
+        c = _residues(rng, primes, (2, P, p.n_ring), dev)
+        jobs.append((f"decrypt of 3 components P={P}", c, spow[:2, :P],
+                     ck.sum_terms(2), primes))
+        for lead in ((), (5,), (24,)):
+            x = _residues(rng, primes, (*lead, 4, P, p.n_ring), dev)
+            jobs.append((f"mul_tensor {lead} P={P}", x, None,
+                         ck.TENSOR_TERMS, primes))
+        d = len(primes)
+        dj = _residues(rng, basis, (d, len(basis), p.n_ring), dev)
+        keys = _residues(rng, basis, (2, d, len(basis), p.n_ring), dev)
+        jobs.append((f"relinearize D={d}", dj, keys.flatten(0, 1),
+                     ck.sum_terms(d, 2), basis))
+        x = _residues(rng, primes, (3, P, p.n_ring), dev)
+        jobs.append((f"mul_plain P={P}", x, None, ck.plain_terms(2),
+                     primes))
+    # relinearize's largest part of the digits at a deeper level: 5
+    # digits, 15 operands
+    basis = tuple(chain)
+    dj = _residues(rng, basis, (5, len(basis), p.n_ring), dev)
+    keys = _residues(rng, basis, (10, len(basis), p.n_ring), dev)
+    jobs.append(("relinearize part D=5", dj, keys, ck.sum_terms(5, 2),
+                 basis))
+    return jobs
+
+
+def phase_ntt_fused(dev, rng) -> tuple[int, int]:
+    """The fused kernel beyond one product a row: T-term sums (T = 1..4)
+    with coefficient and NTT-domain right operands, the special prime,
+    every cipher shape, runs longer than a run carries, and (smaller
+    rings) two-term sums and the relinearize shape; the refusals.  Returns
+    the jobs checked and the max_abs_err."""
+    chain = BENCH_CKKS.primes + [BENCH_CKKS.special_prime]
+    err, jobs = 0, 0
+    for t in (1, 2, 3, 4):
+        for primes, shape in ((chain, (3, 4, 1024)),
+                              (BENCH_CKKS.special_prime, (5, 1024))):
+            xs = [_residues(rng, primes if isinstance(primes, list)
+                            else [primes], shape, dev) for _ in range(2 * t)]
+            pr = primes if isinstance(primes, list) else primes
+            terms = (tuple((s, t + s) for s in range(t)),)
+            err = max(err, _mul_check(xs, [], terms, pr, f"T={t} coef"))
+            err = max(err, _mul_check(xs[:t], xs[t:], terms, pr,
+                                      f"T={t} NTT-domain"))
+            jobs += 2
+    for what, coef, ntt, terms, primes in _cipher_jobs(rng, dev):
+        err = max(err, _mul_check(coef, ntt, terms, primes, what))
+        jobs += 1
+    for n, n_coef, n_out in ((1024, 8, 4), (4096, 3, 3), (8192, 2, 2)):
+        q = CkksParams(n_ring=n, levels=2).primes[0]
+        xs = [_residues(rng, [q], (3, n), dev) for _ in range(n_coef)]
+        terms = tuple(tuple((i, (i + o) % n_coef) for i in range(n_coef))
+                      for o in range(n_out))
+        err = max(err, _mul_check(xs, [], terms, q, f"runs N={n}"))
+        jobs += 1
+    for n in NTT_RINGS:
+        p = CkksParams(n_ring=n, levels=2)
+        ps = p.primes + [p.special_prime]
+        xs = [_residues(rng, ps, (r, 4, n), dev) for r in (3, 3, 3, 3, 3, 3)]
+        err = max(err, _mul_check(xs[:4], [], (((0, 2), (1, 3)),), ps,
+                                  f"T=2 N={n}"))
+        err = max(err, _mul_check(xs[:2], xs[2:], ck.sum_terms(2, 2), ps,
+                                  f"relinearize shape N={n}"))
+        jobs += 2
+    # refusals: an operand 8 bytes into its storage, and more coefficient
+    # rows than a CTA's shared memory holds at N = 8192
+    q = chain[0]
+    odd = torch.zeros(2 * 1024 + 1, dtype=torch.int64, device=dev)[1:]
+    good = _residues(rng, [q], (2, 1024), dev)
+    for call in (lambda: nops.ntt_mul(odd.view(2, 1024), None,
+                                      ck.ONE_TERM, q),
+                 lambda: nops.mul_mod(odd.view(2, 1024), good, q)):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError("a misaligned operand was taken")
+    q13 = CkksParams(n_ring=8192, levels=2).primes[0]
+    big = _residues(rng, [q13], (1, 8192), dev)
+    try:
+        nops.ntt_mul([big] * 6, [], (((0, 3), (1, 4), (2, 5)),), q13)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("ntt_mul took 6 coefficient rows at N=8192")
+    # the standalone product with one stack of b for every stack of a
+    a = _residues(rng, chain, (6, 4, 1024), dev)
+    b = _residues(rng, chain, (4, 1024), dev)
+    got = nops.mul_mod(a, b, chain)
+    if not torch.equal(got, _ntt_plain("mul_mod", a, b.expand_as(a), chain)):
+        raise AssertionError("mul_mod with a broadcast stack != plain")
+    return jobs, err
 
 
 def _schoolbook(a: list[int], b: list[int], q: int) -> list[int]:
@@ -852,7 +1017,7 @@ def phase_ntt_kernels(dev) -> dict:
     errs = {k: 0 for k in NTT_KERNELS}
     chain = BENCH_CKKS.primes + [BENCH_CKKS.special_prime]
     cases = [(1024, [q], (r, 1024)) for q in chain
-             for r in (1, 2, 3, 12, 24, 4096)]
+             for r in (1, 2, 3, 4, 6, 8, 12, 16, 24, 4096)]
     cases += [(1024, chain, (r, 4, 1024)) for r in (1, 3, 6, 12, 4096)]
     cases += [(1024, chain[:3], (r, 3, 1024)) for r in (1, 3, 8)]
     for n in NTT_RINGS:
@@ -893,14 +1058,28 @@ def phase_ntt_kernels(dev) -> dict:
         except ValueError:
             continue
         raise AssertionError(f"{fn.__name__} took a misaligned operand")
+    c1 = ck.ntt.negacyclic_mul(a, b, q).cpu()
+    if not torch.equal(c1, c):
+        raise AssertionError("fused negacyclic product != O(N^2) product")
+    jobs, err = phase_ntt_fused(dev, rng)
+    errs["ntt_mul"] = max(errs["ntt_mul"], err)
     torch.cuda.synchronize()
-    log(f"ntt kernels: ntt_forward, ntt_inverse and mul_mod equal their "
-        f"plain versions bit for bit (tolerance 0: integer arithmetic) in "
-        f"{len(cases)} cases: N=1024 at 1/2/3/12/24/4096 rows for q0, q1, "
-        f"q2, P={BENCH_CKKS.special_prime}, all four in one launch and the "
-        f"chain's three; N in {NTT_RINGS} at odd row counts; round trips; "
-        f"negacyclic products at N=64 equal the O(N^2) product; a "
-        f"misaligned operand refused")
+    log(f"ntt kernels: ntt_forward, ntt_inverse, mul_mod and the fused "
+        f"ntt_mul equal their plain versions bit for bit (tolerance 0: "
+        f"integer arithmetic) in {len(cases)} cases: N=1024 at 1/2/3/4/6/8/"
+        f"12/16/24/4096 rows for q0, q1, q2, P={BENCH_CKKS.special_prime}, "
+        f"all four in one launch and the chain's three; N in {NTT_RINGS} at "
+        f"odd row counts; round trips; negacyclic products at N=64 (three "
+        f"launches and one fused) equal the O(N^2) product; a misaligned "
+        f"operand refused")
+    log(f"  ntt_mul in {jobs} more jobs: T-term sums T=1..4 (coefficient "
+        f"and NTT-domain right operands; the chain and P stacked, and P "
+        f"alone), every cipher shape at levels 2 and 1 (encrypt, decrypt "
+        f"of 2 and 3 components, mul_tensor at 1, 5 and 24 groups, "
+        f"relinearize, mul_plain), several runs at N=1024/4096/8192, two-"
+        f"term sums and the relinearize shape at every other ring; "
+        f"misaligned operands and 6 coefficient rows at N=8192 refused; "
+        f"mul_mod with a broadcast stack")
     return errs
 
 
@@ -934,13 +1113,57 @@ def phase_ckks_parity(dev) -> dict:
             f"final engine memory bit for bit; swaps in/out "
             f"{st.swap_ins}/{st.swap_outs}")
         rows[f"{wl}-{ring}"] = {"card_s": t_g, "cpu_s": t_c}
+    # relinearize at levels of more digits than one fused launch takes
+    # (from 6: a launch for each part of the digits, summed)
+    p = CkksParams(n_ring=1024, levels=5)
+    gpu, cpu = (ck.CkksContext(p, seed=5, device=d) for d in (dev, "cpu"))
+    rng = np.random.default_rng(5)
+    for lvl in (5, 4):
+        q = np.asarray(p.level_primes(lvl), dtype=np.int64)[:, None]
+        ct3 = torch.from_numpy(rng.integers(0, 1 << 40, (3, lvl + 1, 1024))
+                               % q)
+        if not torch.equal(gpu.relinearize(ct3.to(dev), lvl).cpu(),
+                           cpu.relinearize(ct3, lvl)):
+            raise AssertionError(f"relinearize at level {lvl} of 5: card "
+                                 f"and CPU differ")
+    log(f"ckks parity: relinearize at levels 5 ({len(gpu._relin_keys[5])} "
+        f"fused launches) and 4 (1) of a depth-5 chain on the card == on "
+        f"the CPU")
     return rows
+
+
+def expected_ntt_launches(s, levels: int) -> dict:
+    """The NTT launches a CKKS job makes, from its instruction mix: key
+    generation's 1 + levels forward transforms and products (s and s^2,
+    then each level's key); one fused launch for each encryption (an INPUT
+    that is not a plaintext), decryption (OUTPUT), relinearization
+    (CT_RELIN, and CT_MUL's second), mul_plain (CT_MUL_PLAIN) and tensor
+    product (CT_MUL, and each CT_MUL_NR call: a batched group of two or
+    more instructions is one call); no standalone inverse.  Up to levels
+    4: from 6 digits a relinearization is a launch for each part of its
+    digits (``CkksContext._key_chunks``)."""
+    if levels > 4:
+        raise ValueError(f"levels {levels}: relinearize's launches depend "
+                         f"on each instruction's level")
+    ops_ = [ins.op for ins in s.plan()[0].instrs]
+    n_in = sum(1 for ins in s.plan()[0].instrs
+               if ins.op == Op.INPUT and ins.imm[1] != 1)
+    sched = s.engines[0].batch_schedule
+    sizes = np.diff(sched.bounds)
+    batched = sizes[(sched.group_op == int(Op.CT_MUL_NR)) & (sizes >= 2)]
+    mul_nr = ops_.count(Op.CT_MUL_NR) - int((batched - 1).sum())
+    fused = (n_in + ops_.count(Op.OUTPUT) + ops_.count(Op.CT_RELIN) +
+             2 * ops_.count(Op.CT_MUL) + ops_.count(Op.CT_MUL_PLAIN) +
+             mul_nr)
+    return {"ntt_forward": 1 + levels, "ntt_inverse": 0,
+            "mul_mod": 1 + levels, "ntt_mul": fused}
 
 
 def _ckks_checked_run(spec: dict, dev) -> tuple:
     """Run one CKKS job with the NTT counters set to 0 just before it and
     read just after; check that every transform and product the cipher
-    asked for went through a kernel."""
+    asked for went through a kernel, in the launches its instruction mix
+    gives (every kind the job needs launched, the fused one among them)."""
     nops.reset_counts()
     s, out, seconds = _ckks_job(spec, dev)
     counts = nops.counts()
@@ -950,9 +1173,10 @@ def _ckks_checked_run(spec: dict, dev) -> tuple:
                              f"!= rows the cipher asked for {asked}")
     if any(counts["plain_calls"].values()):
         raise AssertionError(f"plain versions ran: {counts['plain_calls']}")
-    if not all(counts["launches"].values()):
-        raise AssertionError(f"a kernel never launched: "
-                             f"{counts['launches']}")
+    want = expected_ntt_launches(s, spec["ckks_levels"])
+    if counts["launches"] != want or not want["ntt_mul"]:
+        raise AssertionError(f"launches {counts['launches']} != {want}, "
+                             f"what the instruction mix gives")
     return s, out, seconds, counts
 
 
@@ -1038,18 +1262,64 @@ def _ntt_timing(kind: str, rows: int, n: int, dev, rng, reps: int) -> dict:
             "bytes_ms": bytes_n / HBM_BYTES_PER_S * 1e3, "err": err}
 
 
+def _mul_timing(key: tuple, n: int, dev, rng, reps: int,
+                replaced: bool = True) -> dict:
+    """One fused launch shape ``key`` = (n_coef, n_ntt, terms, groups, P)
+    at ring n: the kernel's device time (profiler) and the host's pace
+    (events), the plain version, the bound and, beside them, the three
+    standalone launches the fused one replaces at the same sizes (forward
+    of the coefficient rows, the products, the inverse of the outputs),
+    each timed alone; checks the kernel against the plain version."""
+    n_coef, n_ntt, terms, groups, P = key
+    chain = BENCH_CKKS.primes + [BENCH_CKKS.special_prime]
+    primes = tuple(chain[:P]) if P > 1 else (BENCH_CKKS.primes[1],)
+    coef = _residues(rng, list(primes), (groups, n_coef, P, n), dev)
+    ntt = _residues(rng, list(primes), (n_ntt, P, n), dev) if n_ntt \
+        else None
+    kfn = lambda: nops.ntt_mul(coef, ntt, terms, primes)  # noqa: E731
+    pfn = lambda: _mul_plain(coef, ntt, terms, primes)  # noqa: E731
+    err = _max_abs_err((kfn(),), (pfn(),))
+    if err:
+        raise AssertionError(f"ntt_mul != plain at {key}: {err}")
+    ctas, n_out = groups * P, len(terms)
+    n_terms = sum(len(t) for t in terms)
+    host_ms = _device_ms(kfn, reps)
+    out = {"ms": _kernel_ms(kfn, NTT_KERNELS["ntt_mul"][0], reps) or host_ms,
+           "host_ms": host_ms,
+           "plain_ms": _device_ms(pfn, max(reps // 40, 3)),
+           "ops_ms": nk.ntt_mul_ops(n_coef, n_terms, n_out, ctas, n)
+           / INT_OPS_PER_S * 1e3,
+           "bytes_ms": nk.ntt_mul_bytes(n_coef + n_ntt, n_out, ctas, n, P)
+           / HBM_BYTES_PER_S * 1e3, "err": err}
+    if replaced:
+        rows = {"ntt_forward": ctas * n_coef, "mul_mod": ctas * n_terms,
+                "ntt_inverse": ctas * n_out}
+        out["unfused"] = {}
+        for kind in UNFUSED:
+            a = _residues(rng, [primes[0]], (rows[kind], n), dev)
+            fn = lambda: _ntt_kernel(kind, a, a, primes[0])  # noqa: E731
+            out["unfused"][kind] = _kernel_ms(fn, NTT_KERNELS[kind][0],
+                                              reps) or _device_ms(fn, reps)
+        out["unfused_ms"] = sum(out["unfused"].values())
+    return out
+
+
 def _ntt_wrapper_costs(dev, reps: int = 2000) -> dict:
     """Host µs of the pieces of a forward wrapper call on 12 rows of
-    N = 1024 (4 stacks of the chain's three primes, the main path's most
-    common launch), each on the host's clock over back-to-back calls
+    N = 1024 (4 stacks of the chain's three primes, a common launch before
+    the fused product), each on the host's clock over back-to-back calls
     (median of five rounds taken in turns): the operand's checks; the
     primes' checks and the table lookup that every call made before they
     were remembered, and the one lookup of both that it makes now; the
-    output's allocation; the current stream; the ctypes call alone (no
-    rows: it launches nothing); and the whole call, as it is and with the
-    remembered primes forgotten before each call."""
+    output's allocation; the current stream as a torch.cuda.Stream object
+    (as the wrapper read it before) and as the raw handle it reads now;
+    the ctypes call alone (no rows: it launches nothing); the whole call,
+    as it is and with the remembered primes forgotten before each call;
+    and a whole fused call of the encryption's shape and of the tensor
+    product's."""
     primes = tuple(BENCH_CKKS.primes)
     a = _residues(np.random.default_rng(3), primes, (4, 3, 1024), dev)
+    s = _residues(np.random.default_rng(4), primes, (1, 3, 1024), dev)
     lib = nk.library()
     t = nops.tables(primes, 1024, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1064,13 +1334,31 @@ def _ntt_wrapper_costs(dev, reps: int = 2000) -> dict:
             nops._validate(primes, 1024), 1024, a.device),
         "prepare": lambda: nops._prepare(a, primes),
         "output": lambda: torch.empty_like(a),
-        "stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "stream": lambda: nk._stream(a),
         "ctypes": lambda: lib.ntt_forward(ptr, ptr, tw, cs, 3, 10, 0,
                                           stream),
         "call": lambda: nops.ntt_forward(a, primes),
         "call_validating": forgotten,
+        "fused_encrypt": lambda: nops.ntt_mul(a[:1], s, ck.ONE_TERM,
+                                              primes),
+        "fused_tensor": lambda: nops.ntt_mul(a, None, ck.TENSOR_TERMS,
+                                             primes),
     }
     return _host_us(pieces, reps)
+
+
+def _replaced_sizes(shapes: dict) -> dict:
+    """The standalone launches the fused launches replace, by kind: rows
+    -> launches."""
+    out = {k: {} for k in UNFUSED}
+    for (n_coef, _, terms, groups, P), k in shapes.items():
+        ctas = groups * P
+        for kind, r in (("ntt_forward", ctas * n_coef),
+                        ("mul_mod", ctas * sum(len(t) for t in terms)),
+                        ("ntt_inverse", ctas * len(terms))):
+            out[kind][r] = out[kind].get(r, 0) + k
+    return out
 
 
 def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
@@ -1078,7 +1366,11 @@ def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
     launch-weighted as kernel_record does (device time from the profiler,
     the host's pace per back-to-back wrapper call from events), and at
     4096 rows, beside the empty kernel's floor, the clocks and a host
-    breakdown of a wrapper call."""
+    breakdown of a wrapper call.  A standalone kernel that the main path
+    no longer launches (the inverse) is weighted over the sizes that the
+    fused launches replace.  The fused kernel is weighted over its launch
+    shapes and set beside the three launches it replaces, timed at the
+    same sizes."""
     rng = np.random.default_rng(12)
     n = BENCH_CKKS.n_ring
     rows_out = []
@@ -1086,8 +1378,11 @@ def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
     log(f"  clocks (sm, max sm, temperature, power): {big['clocks']}")
     log(f"  empty kernel (the launch floor): {big['empty']['ms']} ms "
         f"(profiler), {big['empty']['host_ms']:.5f} ms per call (events)")
-    for kind, (kname, line) in NTT_KERNELS.items():
-        sizes = counts["launch_sizes"][kind]
+    replaced = _replaced_sizes(counts["mul_shapes"])
+    for kind in UNFUSED:
+        kname, replaces = NTT_KERNELS[kind]
+        own = counts["launch_sizes"][kind]
+        sizes = own or replaced[kind]
         total = sum(sizes.values())
         acc = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "ops_ms": 0.0, "bytes_ms": 0.0}
@@ -1101,7 +1396,7 @@ def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
         rows_out.append({
             "name": kind, "route": "cuda",
             "source": "src/repro_torch/kernels/ntt/csrc/ntt.cu",
-            "replaces": f"src/repro/kernels/ntt/kernel.py:{line}",
+            "replaces": replaces,
             "launches": counts["launches"][kind],
             "max_abs_err": float(errs[kind]),
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": bound,
@@ -1111,8 +1406,11 @@ def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
         big[f"{kind}_main"] = {k: acc[k] for k in ("ms", "host_ms",
                                                    "plain_ms")}
         big[f"{kind}_main"]["bound_ms"] = bound
-        log(f"  {kind} over the CKKS main path's launch sizes "
-            f"{dict(sorted(sizes.items()))}: {acc['ms']:.6f} ms per launch "
+        log(f"  {kind} over "
+            + ("the CKKS main path's launch sizes" if own else
+               "the sizes the fused launches replace (the main path "
+               "launches it no more)")
+            + f" {dict(sorted(sizes.items()))}: {acc['ms']:.6f} ms per launch "
             f"(bound {bound:.3e} ms, plain {acc['plain_ms']:.4f} ms"
             + (f", (a * b) % q {acc['library_ms']:.4f} ms"
                if kind == "mul_mod" else "") + f"), {acc['host_ms']:.5f} "
@@ -1125,9 +1423,58 @@ def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
             + (f", (a * b) % q {at4k['library_ms']:.4f} ms"
                if kind == "mul_mod" else "")
             + f", {at4k['host_ms']:.5f} ms per wrapper call (events)")
+        if kind == "mul_mod":
+            for r in (2, 12, 24):
+                one = _ntt_timing(kind, r, n, dev, rng, 200)
+                big[f"mul_mod_{r}"] = one["ms"]
+            log(f"  mul_mod at 2 / 12 / 24 rows: {big['mul_mod_2']:.6f} / "
+                f"{big['mul_mod_12']:.6f} / {big['mul_mod_24']:.6f} ms")
+    # the fused kernel, over its main-path shapes, against what it replaces
+    shapes = counts["mul_shapes"]
+    total = sum(shapes.values())
+    acc = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0,
+           "bytes_ms": 0.0, "unfused_ms": 0.0}
+    per_shape = []
+    for key, k in sorted(shapes.items(), key=lambda kv: -kv[1]):
+        one = _mul_timing(key, n, dev, rng, 200)
+        for name in acc:
+            acc[name] += k / total * one[name]
+        per_shape.append([list(key[:2]) + [len(key[2])] + list(key[3:]), k,
+                          one["ms"], one["unfused_ms"], one["unfused"]])
+        log(f"  ntt_mul shape (coef {key[0]}, ntt {key[1]}, outputs "
+            f"{len(key[2])}, groups {key[3]}, primes {key[4]}) x{k}: "
+            f"{one['ms']:.6f} ms against {one['unfused_ms']:.6f} for the "
+            f"three it replaces ({', '.join(f'{u} {v:.6f}' for u, v in one['unfused'].items())})")
+    bound = max(acc["ops_ms"], acc["bytes_ms"])
+    at4k = _mul_timing((2, 0, ck.ONE_TERM, 4096, 1), n, dev, rng, 50)
+    b4k = max(at4k["ops_ms"], at4k["bytes_ms"])
+    big["ntt_mul"] = at4k
+    big["ntt_mul_main"] = {**acc, "bound_ms": bound, "shapes": per_shape,
+                           "ratio": acc["ms"] / acc["unfused_ms"]}
+    rows_out.append({
+        "name": "ntt_mul", "route": "cuda",
+        "source": "src/repro_torch/kernels/ntt/csrc/ntt.cu",
+        "replaces": NTT_KERNELS["ntt_mul"][1],
+        "launches": counts["launches"]["ntt_mul"],
+        "max_abs_err": float(errs["ntt_mul"]),
+        "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": bound,
+        "bound_by": "operations" if acc["ops_ms"] >= acc["bytes_ms"]
+        else "bytes", "library_ms": None})
+    log(f"  ntt_mul over the CKKS main path's launch shapes: {acc['ms']:.6f}"
+        f" ms per launch against {acc['unfused_ms']:.6f} for the three "
+        f"launches it replaces ({acc['ms'] / acc['unfused_ms']:.3f} of "
+        f"them; bound {bound:.3e} ms, plain {acc['plain_ms']:.4f} ms), "
+        f"{acc['host_ms']:.5f} ms per wrapper call (events)")
+    log(f"  ntt_mul at 4096 output rows of N=1024 (two coefficient rows "
+        f"each): {at4k['ms']:.5f} ms (bound {b4k:.4f} ms by "
+        f"{'operations' if at4k['ops_ms'] >= at4k['bytes_ms'] else 'bytes'}"
+        f", {b4k / at4k['ms']:.3g} of it) against {at4k['unfused_ms']:.5f} "
+        f"for the three launches ({', '.join(f'{u} {v:.5f}' for u, v in at4k['unfused'].items())}), "
+        f"plain {at4k['plain_ms']:.4f} ms, {at4k['host_ms']:.5f} ms per "
+        f"wrapper call (events)")
     big["wrapper_us"] = _ntt_wrapper_costs(dev)
     log("  host µs per piece of a forward wrapper call on 12 rows (host "
-        "clock, back to back): " + ", ".join(
+        "clock, back to back), and of two fused calls: " + ", ".join(
             f"{k} {v:.2f}" for k, v in big["wrapper_us"].items()))
     return rows_out, big
 

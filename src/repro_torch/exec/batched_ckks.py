@@ -4,9 +4,10 @@ a group of ``count`` independent instructions as one call each.
 
 The group's operand spans are gathered into ``(count, ncomp, level+1, N)``
 device tensors and handed to the context's ops, which take a leading batch:
-a CT_MUL_NR group is one forward-transform launch over every component and
-prime of every instruction, one modular-product launch and one inverse
-launch (``kernels.ntt``).  All primes are below 2^31, so the batched
+a CT_MUL_NR group is one fused negacyclic-product launch over every
+component and prime of every instruction: the forward transforms, the
+products and the inverse transforms (``kernels.ntt``, ``ntt_mul``).  All
+primes are below 2^31, so the batched
 formulas replay the scalar arithmetic bit for bit.
 
 CT_MUL / CT_RELIN / CT_MUL_PLAIN / INPUT / OUTPUT stay scalar: INPUT

@@ -330,6 +330,20 @@ NTT_TD ntt_u4 load16(const ntt_u4* p) {
 #endif
 }
 
+// x as a value the compiler cannot see through, new where this is
+// called: what a loop computes from it is not hoisted out of the loop and
+// held across it (in registers, or spilled to local memory).
+template <typename T>
+NTT_TD T opaque(T x) {
+#if defined(__CUDA_ARCH__)
+  if constexpr (sizeof(T) == 8)
+    asm volatile("" : "+l"(x));
+  else
+    asm volatile("" : "+r"(x));
+#endif
+  return x;
+}
+
 // A twiddle and its quotient.  On the card a plain (coherent) load in
 // inline PTX: the compiler may not sink it past the next __syncthreads,
 // as it may a read-only (__ldg) load to save registers, which would put a
@@ -349,11 +363,17 @@ NTT_TD ntt_u2 load8(const ntt_u2* p) {
 // One thread's part of a row transform, split at the barriers: phase<E>
 // runs pass E, after reading exchange E-1 (E > 0); the kernel puts a
 // __syncthreads between phases, the host harness runs each phase for every
-// thread before the next.
-template <int LOGN, bool INV>
+// thread before the next.  phase() is the transform kernels' whole step;
+// the fused product (MulThread below) composes the same pieces.  AHEAD is
+// how many passes ahead the twiddles are loaded: the plan's, unless the
+// fused product asks for fewer.
+template <int LOGN, bool INV, int AHEAD = Plan<LOGN, INV>::kAhead>
 struct NttThread {
   using Pl = Plan<LOGN, INV>;
-  static constexpr int N = Pl::N, R = Pl::R, NP = Pl::NP;
+  static constexpr int N = Pl::N, R = Pl::R, NP = Pl::NP, T = Pl::T;
+  static constexpr int kAhead = AHEAD;
+  // the twiddles that phase 0 loads: passes 0 .. kAhead
+  static constexpr int kFirst = kAhead < NP ? kAhead + 1 : NP;
 
   uint32_t v[R];
   ntt_u2 tw[NP][Pl::kSlots];
@@ -385,7 +405,36 @@ struct NttThread {
     return a ^ c;
   }
 
+  // the 16-byte unit of a row that holds registers 2c, 2c+1 in pass P (the
+  // first and the last pass: the pair layout)
+  template <int P, int C>
+  NTT_TD static uint32_t pair_unit(uint32_t tid) {
+    return (tid_elem<P>(tid) | Pl::reg_elem(P, 2 * C)) >> 1;
+  }
+
   template <int P>
+  NTT_TD static void load_row(uint32_t (&r)[R], uint32_t tid,
+                              const ntt_u4* in) {
+    static_for<0, R / 2>([&](auto c) {
+      constexpr int C = decltype(c)::value;
+      const ntt_u4 x = load16(in + pair_unit<P, C>(tid));
+      r[2 * C] = x.x;
+      r[2 * C + 1] = x.z;
+    });
+  }
+
+  template <int P>
+  NTT_TD static void store_row(const uint32_t (&r)[R], uint32_t tid,
+                               ntt_u4* out) {
+    static_for<0, R / 2>([&](auto c) {
+      constexpr int C = decltype(c)::value;
+      out[pair_unit<P, C>(tid)] = ntt_u4{r[2 * C], 0u, r[2 * C + 1], 0u};
+    });
+  }
+
+  // pass P's twiddles from the table `tab` (device memory, or with SMEM a
+  // copy of it in shared memory)
+  template <int P, bool SMEM = false>
   NTT_TD void load_twiddles(uint32_t tid, const ntt_u2* tab) {
     const uint32_t jt = tid_elem<P>(tid);
     static_for<0, Pl::n_stages(P)>([&](auto t) {
@@ -397,8 +446,19 @@ struct NttThread {
         constexpr uint32_t off = Pl::reg_elem(P, Pl::slot_reg(P, S, C)) >>
                                  (b + 1);
         constexpr int slot = Pl::slot_base(P, S) + C;
-        tw[P][slot] = load8(tab + (base | off));
+        if constexpr (SMEM)
+          tw[P][slot] = tab[base | off];
+        else
+          tw[P][slot] = load8(tab + (base | off));
       });
+    });
+  }
+
+  // the twiddles of passes 0 .. kAhead, which phase 0 loads
+  template <bool SMEM = false>
+  NTT_TD void load_first_twiddles(uint32_t tid, const ntt_u2* tab) {
+    static_for<0, kFirst>([&](auto p) {
+      load_twiddles<decltype(p)::value, SMEM>(tid, tab);
     });
   }
 
@@ -425,46 +485,388 @@ struct NttThread {
     });
   }
 
+  // exchange E: pass E writes its registers to buffer E % 2, pass E+1
+  // reads them back in its own layout
+  template <int E>
+  NTT_TD void exchange_out(uint32_t tid, uint32_t* smem) {
+    uint32_t* buf = smem + (E & 1) * N;
+    static_for<0, R>([&](auto k) {
+      constexpr int K = decltype(k)::value;
+      buf[smem_index<E, E, K>(tid)] = v[K];
+    });
+  }
+
+  template <int E>
+  NTT_TD void exchange_in(uint32_t tid, const uint32_t* smem) {
+    const uint32_t* buf = smem + ((E - 1) & 1) * N;
+    static_for<0, R>([&](auto k) {
+      constexpr int K = decltype(k)::value;
+      v[K] = buf[smem_index<E - 1, E, K>(tid)];
+    });
+  }
+
+  // the transform kernels' step: row `in` to row `out`
   template <int E>
   NTT_TD void phase(uint32_t tid, const ntt_u4* in, ntt_u4* out,
                     const ntt_u2* tab, const NttPrime* prime,
                     uint32_t* smem) {
     if constexpr (E == 0) {
       pr = *prime;
-      const uint32_t jt = tid_elem<0>(tid);
-      static_for<0, R / 2>([&](auto c) {
-        constexpr int k = 2 * decltype(c)::value;
-        constexpr uint32_t jr = Pl::reg_elem(0, k);
-        const ntt_u4 x = load16(in + ((jt | jr) >> 1));
-        v[k] = x.x;
-        v[k + 1] = x.z;
-      });
-      static_for<0, (Pl::kAhead < NP ? Pl::kAhead + 1 : NP)>(
-          [&](auto p) { load_twiddles<decltype(p)::value>(tid, tab); });
+      load_row<0>(v, tid, in);
+      load_first_twiddles(tid, tab);
     } else {
-      const uint32_t* buf = smem + ((E - 1) & 1) * N;
-      static_for<0, R>([&](auto k) {
-        constexpr int K = decltype(k)::value;
-        v[K] = buf[smem_index<E - 1, E, K>(tid)];
-      });
-      if constexpr (E + Pl::kAhead < NP)
-        load_twiddles<E + Pl::kAhead>(tid, tab);
+      exchange_in<E>(tid, smem);
+      if constexpr (E + kAhead < NP) load_twiddles<E + kAhead>(tid, tab);
     }
     run_pass<E>();
-    if constexpr (E + 1 < NP) {
-      uint32_t* buf = smem + (E & 1) * N;
-      static_for<0, R>([&](auto k) {
-        constexpr int K = decltype(k)::value;
-        buf[smem_index<E, E, K>(tid)] = v[K];
-      });
-    } else {
-      const uint32_t jt = tid_elem<E>(tid);
+    if constexpr (E + 1 < NP)
+      exchange_out<E>(tid, smem);
+    else
+      store_row<E>(v, tid, out);
+  }
+};
+
+
+// A 16-byte copy from global to shared memory that does not pass through
+// registers (cp.async, L2 only), and the wait for this thread's copies;
+// the barrier after the wait makes them visible to the other threads.
+NTT_TD void copy16(void* dst, const void* src) {
+#if defined(__CUDA_ARCH__)
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(s), "l"(src) : "memory");
+#else
+  *static_cast<ntt_u4*>(dst) = *static_cast<const ntt_u4*>(src);
+#endif
+}
+
+NTT_TD void copy16_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;" ::: "memory");
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// The fused negacyclic product (ntt_mul_kernel in ntt.cu).
+//
+// For one prime p of one group g of a launch's job it computes each output
+//   out[g, o, p] = INV( sum over the terms (i, j) of o of X_i * X_j mod q )
+// where X_i = FWD(operand i) for the first n_coef operands (coefficient
+// rows) and X_i = operand i itself for the others (rows already in the NTT
+// domain).  The forward's last pass and the inverse's first pass hold the
+// same elements in the same registers of the same thread (the pair layout
+// P), so a row goes forward, is multiplied and goes back with no trip
+// through device memory between.
+//
+// A (g, p) is a cluster of `teams` CTAs (one CTA, no cluster, for a
+// single team), each of the transform's T threads and one row at a time,
+// so the rows of one operation (the tensor product's four) go through
+// their passes on as many SMs at once.  Steps:
+//   1. the coefficient operands go forward, operand i on team i % teams,
+//      as the transform kernels run them (the row and every twiddle loaded
+//      at the start); behind those loads each CTA copies the NTT-domain
+//      operands its outputs read and the inverse's twiddle table into its
+//      shared memory with cp.async, each thread its own units, so the
+//      copies overlap the first pass's wait for the row;
+//   2. after the last pass each thread stores its R values of the row
+//      into the shared memory of each CTA of the cluster whose outputs
+//      read it ([i][c][tid], 8-byte pairs; remote stores, which do not
+//      wait);
+//   3. a cluster barrier; then output o on team o % teams: each thread
+//      forms its R values of the output's sum of products from its own
+//      CTA's shared memory (mul_mod, add_mod: exact), and the row goes
+//      through the inverse passes, each pass's twiddles read from the
+//      shared copy of the table, and out.  Nothing reads another CTA's
+//      shared memory after the barrier, so a CTA may leave when done.
+// Operand i < n_coef at (g, p) starts at coef + g coef_gs + i coef_s +
+// p N/2 (16-byte units), an NTT-domain one at ntt + g ntt_gs + (i - n_coef)
+// ntt_s + p N/2, output o at out + g out_gs + o out_os + p N/2: the
+// operands of a kind are one stack, as the cipher layer keeps them.
+// ---------------------------------------------------------------------------
+
+constexpr int kMulMaxIn = 16, kMulMaxTerms = 32, kMulMaxOut = 16;
+// CTAs a cluster may have without opting in to larger ones
+constexpr int kMulMaxTeams = 8;
+// the dynamic shared memory a CTA may take (H100: 227 KiB, less 1 KiB for
+// the kernel's own: the job)
+constexpr int kMulMaxSmem = 232448 - 1024;
+
+// The job of one fused launch, the kernel's parameter (by value).
+struct alignas(16) MulJob {
+  const ntt_u4* coef;            // coefficient operand 0 at group 0, prime 0
+  int64_t coef_gs, coef_s;       // group and operand strides, 16-byte units
+  const ntt_u4* ntt;             // the NTT-domain operands, the same way
+  int64_t ntt_gs, ntt_s;
+  ntt_u4* out;
+  int64_t out_gs, out_os;
+  const ntt_u2* tw;              // (n_primes, 2, N) twiddle tables
+  const NttPrime* primes;        // n_primes constant rows
+  int n_coef, n_in, n_out, n_primes, stage_ntt, teams;
+  uint8_t term_end[kMulMaxOut];  // output o: terms term_end[o-1] ..
+  uint8_t lhs[kMulMaxTerms];     //   term_end[o] - 1 (from 0 for o = 0)
+  uint8_t rhs[kMulMaxTerms];
+  // from the terms: the NTT-domain operands team j's outputs read, and the
+  // teams whose outputs read coefficient row i, a bit each
+  uint16_t ntt_need[kMulMaxTeams];
+  uint8_t coef_dest[kMulMaxIn];
+};
+
+// A job from the wrapper's descriptor, int64 words: n_coef, n_in, n_out,
+// n_primes, groups, stage_ntt, teams, coef, coef_gs, coef_s, ntt, ntt_gs,
+// ntt_s, out, out_gs, out_os (strides in 16-byte units), the twiddle
+// tables, the primes' constants, then n_out term ends and each term's two
+// operand indices.  Returns false for a job
+// beyond the limits; the launch has groups * n_primes clusters.
+NTT_HD bool parse_job(const int64_t* desc, MulJob* job, int64_t* groups) {
+  *job = MulJob{};
+  job->n_coef = (int)desc[0];
+  job->n_in = (int)desc[1];
+  job->n_out = (int)desc[2];
+  job->n_primes = (int)desc[3];
+  *groups = desc[4];
+  job->stage_ntt = (int)desc[5];
+  job->teams = (int)desc[6];
+  job->coef = (const ntt_u4*)desc[7];
+  job->coef_gs = desc[8];
+  job->coef_s = desc[9];
+  job->ntt = (const ntt_u4*)desc[10];
+  job->ntt_gs = desc[11];
+  job->ntt_s = desc[12];
+  job->out = (ntt_u4*)desc[13];
+  job->out_gs = desc[14];
+  job->out_os = desc[15];
+  job->tw = (const ntt_u2*)desc[16];
+  job->primes = (const NttPrime*)desc[17];
+  if (job->n_in > kMulMaxIn || job->n_out > kMulMaxOut || job->n_out < 1 ||
+      job->n_coef < 1 || job->n_coef > job->n_in || job->n_primes < 1 ||
+      job->teams < 1 || job->teams > kMulMaxTeams)
+    return false;
+  const int64_t* d = desc + 18;
+  for (int o = 0; o < job->n_out; ++o) job->term_end[o] = (uint8_t)d[o];
+  const int64_t n_terms = d[job->n_out - 1];
+  d += job->n_out;
+  if (n_terms > kMulMaxTerms) return false;
+  for (int t = 0; t < n_terms; ++t) {
+    job->lhs[t] = (uint8_t)d[2 * t];
+    job->rhs[t] = (uint8_t)d[2 * t + 1];
+  }
+  for (int o = 0, t = 0; o < job->n_out; ++o) {
+    const int team = o % job->teams;
+    for (; t < job->term_end[o]; ++t)
+      for (int side = 0; side < 2; ++side) {
+        const int x = side ? job->rhs[t] : job->lhs[t];
+        if (x >= job->n_in) return false;
+        if (x < job->n_coef)
+          job->coef_dest[x] |= (uint8_t)(1u << team);
+        else
+          job->ntt_need[team] |= (uint16_t)(1u << (x - job->n_coef));
+      }
+  }
+  return true;
+}
+
+template <int LOGN>
+struct MulThread {
+  // the forward's twiddles as the transform kernels load them, but at
+  // N = 8192 each pass's as it starts, not a pass ahead: at 512 threads of
+  // 16 values the 30 pairs of a pass ahead spill beside the fused kernel's
+  // own state (52 bytes, ptxas)
+  using Fw =
+      NttThread<LOGN, false, LOGN == 13 ? 0 : Plan<LOGN, false>::kAhead>;
+  using Iv = NttThread<LOGN, true>;
+  static constexpr int N = Fw::N, R = Fw::R, NP = Fw::NP, T = Fw::T;
+  static constexpr int NH = N / 2;   // 16-byte units a row
+
+  // the inverse's twiddles from a copy of its table in shared memory, a
+  // pass's as the pass starts (up to N = 4096, 32 KiB); at N = 8192 from
+  // device memory a pass ahead, as the transform kernels load them
+  static constexpr bool kTwSmem = LOGN <= 12;
+
+  // A CTA's shared memory, in 32-bit words: the exchange buffers (2 N),
+  // the inverse's twiddle table (2 N), the NTT-domain operands if staged
+  // (2 N a row: 16-byte units [m][c][tid]), every transformed coefficient
+  // row (N a row: 8-byte pairs [i][c][tid]).
+  static constexpr int kExchange = NP > 1 ? 2 * N : 0;
+  static constexpr int kTw = kTwSmem ? 2 * N : 0;
+  NTT_HD static constexpr int64_t smem_bytes(int n_coef, int n_ntt,
+                                             bool stage) {
+    return 4 * ((int64_t)kExchange + kTw +
+                (stage ? (int64_t)n_ntt * 2 * N : 0) + (int64_t)n_coef * N);
+  }
+  NTT_TD static ntt_u2* tw_stage(uint32_t* smem) {
+    return reinterpret_cast<ntt_u2*>(smem + kExchange);
+  }
+  NTT_TD static ntt_u4* ntt_stage(uint32_t* smem) {
+    return reinterpret_cast<ntt_u4*>(smem + kExchange + kTw);
+  }
+  NTT_TD static ntt_u2* coef_stage(const MulJob& job, uint32_t* smem) {
+    return reinterpret_cast<ntt_u2*>(
+        smem + kExchange + kTw +
+        (job.stage_ntt ? (job.n_in - job.n_coef) * 2 * N : 0));
+  }
+
+  Fw f;
+  Iv iv;
+
+  NTT_TD static const ntt_u4* operand(const MulJob& job, int i, uint32_t g,
+                                      uint32_t p) {
+    return i < job.n_coef
+               ? job.coef + (int64_t)g * job.coef_gs +
+                     (int64_t)i * job.coef_s + (int64_t)p * NH
+               : job.ntt + (int64_t)g * job.ntt_gs +
+                     (int64_t)(i - job.n_coef) * job.ntt_s + (int64_t)p * NH;
+  }
+
+  // this thread's 16-byte units of the NTT-domain operands its team's
+  // outputs read, by cp.async
+  NTT_TD static void stage_ntt(uint32_t team, uint32_t tid,
+                               const MulJob& job, uint32_t g, uint32_t p,
+                               uint32_t* smem) {
+    ntt_u4* st = ntt_stage(smem);
+    for (int m = 0; m < job.n_in - job.n_coef; ++m) {
+      if (!(job.ntt_need[team] >> m & 1)) continue;
+      const ntt_u4* src = operand(job, job.n_coef + m, g, p);
       static_for<0, R / 2>([&](auto c) {
-        constexpr int k = 2 * decltype(c)::value;
-        constexpr uint32_t jr = Pl::reg_elem(E, k);
-        out[(jt | jr) >> 1] = ntt_u4{v[k], 0u, v[k + 1], 0u};
+        constexpr int C = decltype(c)::value;
+        copy16(st + ((int64_t)m * (R / 2) + C) * T + tid,
+               src + Iv::template pair_unit<0, C>(tid));
       });
     }
+  }
+
+  // step 1: pass E of forward run `run` (this team's row: run teams +
+  // team); peer(j, ptr) is the same address in team j's shared memory
+  template <int E, class Peer>
+  NTT_TD void fwd_phase(int run, uint32_t team, uint32_t tid,
+                        const MulJob& job, uint32_t g, uint32_t p,
+                        const ntt_u2* tab, const NttPrime* prime,
+                        uint32_t* smem, Peer peer) {
+    const int i = run * job.teams + (int)team;
+    const bool on = i < job.n_coef;
+    if constexpr (E == 0) {
+      if (run == 0) f.pr = *prime;
+      if (on) {
+        const ntt_u4* row = operand(job, i, g, p);
+        Fw::template load_row<0>(f.v, tid, row);
+        if (run == 0 || Fw::kAhead < NP - 1) f.load_first_twiddles(tid, tab);
+      }
+    } else if (on) {
+      f.template exchange_in<E>(tid, smem);
+      if constexpr (E + Fw::kAhead < NP)
+        f.template load_twiddles<E + Fw::kAhead>(tid, tab);
+    }
+    // the NTT-domain operands and the inverse's table, behind the row's
+    // and the twiddles' loads: the load/store unit copies them while the
+    // first pass waits for the row
+    if constexpr (E == 0) {
+      if (run == 0) {
+        if (job.stage_ntt) stage_ntt(team, tid, job, g, p, smem);
+        if constexpr (kTwSmem) {
+          ntt_u4* st = reinterpret_cast<ntt_u4*>(tw_stage(smem));
+          const ntt_u4* src = reinterpret_cast<const ntt_u4*>(tab + N);
+          static_for<0, R / 2>([&](auto c) {   // N / 2 units, R / 2 each
+            constexpr int C = decltype(c)::value;
+            copy16(st + C * T + tid, src + C * T + tid);
+          });
+        }
+      }
+    }
+    if (on) f.template run_pass<E>();
+    if constexpr (E + 1 < NP) {
+      if (on) f.template exchange_out<E>(tid, smem);
+    } else if (on) {
+      const int64_t at = (int64_t)i * (R / 2) * T + tid;
+      for (int j = 0; j < job.teams; ++j) {
+        if (!(job.coef_dest[i] >> j & 1)) continue;
+        ntt_u2* st = peer(j, coef_stage(job, smem)) + at;
+        static_for<0, R / 2>([&](auto c) {
+          constexpr int C = decltype(c)::value;
+          st[C * T] = ntt_u2{f.v[2 * C], f.v[2 * C + 1]};
+        });
+      }
+    }
+  }
+
+  // step 2's end, after the last forward run and before the cluster
+  // barrier: the copies waited for
+  NTT_TD void finish_forward() {
+    copy16_wait();
+    iv.pr = f.pr;
+  }
+
+  // this thread's R values of operand i in layout P from its CTA's shared
+  // memory (or, where the NTT-domain operands are not staged, from device
+  // memory): the branch once a row, then every load of the row at once
+  NTT_TD static void fetch(uint32_t (&x)[R], int i, uint32_t tid,
+                           const MulJob& job, uint32_t g, uint32_t p,
+                           uint32_t* smem) {
+    if (i < job.n_coef) {
+      const ntt_u2* st = coef_stage(job, smem) + (int64_t)i * (R / 2) * T;
+      static_for<0, R / 2>([&](auto c) {
+        constexpr int C = decltype(c)::value;
+        const ntt_u2 y = st[C * T + tid];
+        x[2 * C] = y.x;
+        x[2 * C + 1] = y.y;
+      });
+    } else if (job.stage_ntt) {
+      const ntt_u4* st =
+          ntt_stage(smem) + (int64_t)(i - job.n_coef) * (R / 2) * T;
+      static_for<0, R / 2>([&](auto c) {
+        constexpr int C = decltype(c)::value;
+        const ntt_u4 y = st[C * T + tid];
+        x[2 * C] = y.x;
+        x[2 * C + 1] = y.z;
+      });
+    } else {
+      Iv::template load_row<0>(x, tid, operand(job, i, g, p));
+    }
+  }
+
+  // output o's sum of products, this thread's R values, into iv.v
+  NTT_TD void products(int o, uint32_t tid, const MulJob& job, uint32_t g,
+                       uint32_t p, uint32_t* smem) {
+    static_for<0, R>([&](auto k) { iv.v[decltype(k)::value] = 0; });
+    const int t1 = job.term_end[o];
+    for (int t = o ? job.term_end[o - 1] : 0; t < t1; ++t) {
+      uint32_t x[R], y[R];
+      fetch(x, job.lhs[t], tid, job, g, p, smem);
+      fetch(y, job.rhs[t], tid, job, g, p, smem);
+      static_for<0, R>([&](auto k) {
+        constexpr int K = decltype(k)::value;
+        iv.v[K] = add_mod(iv.v[K], mul_mod(x[K], y[K], iv.pr), iv.pr.q);
+      });
+    }
+  }
+
+  // step 3: pass E of inverse run `run` (this team's output: run teams +
+  // team), its twiddles from the shared copy of the table, or (N = 8192)
+  // from `tab` in device memory a pass ahead, after the products
+  template <int E>
+  NTT_TD void inv_phase(int run, uint32_t team, uint32_t tid,
+                        const MulJob& job, uint32_t g, uint32_t p,
+                        const ntt_u2* tab, uint32_t* smem) {
+    const int o = run * job.teams + (int)team;
+    if (o >= job.n_out) return;
+    if constexpr (E == 0) {
+      if constexpr (kTwSmem)
+        iv.template load_twiddles<0, true>(tid, tw_stage(smem));
+      products(o, tid, job, g, p, smem);
+      if constexpr (!kTwSmem) iv.load_first_twiddles(tid, tab);
+    } else {
+      iv.template exchange_in<E>(tid, smem);
+      if constexpr (kTwSmem)
+        iv.template load_twiddles<E, true>(tid, tw_stage(smem));
+      else if constexpr (E + Iv::kAhead < NP)
+        iv.template load_twiddles<E + Iv::kAhead>(tid, tab);
+    }
+    iv.template run_pass<E>();
+    if constexpr (E + 1 < NP)
+      iv.template exchange_out<E>(tid, smem);
+    else
+      Iv::template store_row<E>(
+          iv.v, tid,
+          job.out + (int64_t)g * job.out_gs + (int64_t)o * job.out_os +
+              (int64_t)p * NH);
   }
 };
 

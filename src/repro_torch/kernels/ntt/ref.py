@@ -57,3 +57,23 @@ def mul_mod(a: torch.Tensor, b: torch.Tensor,
             q: torch.Tensor) -> torch.Tensor:
     """a * b mod q, elementwise."""
     return (a * b) % q.reshape(1, -1, 1)
+
+
+def ntt_mul(operands: list[torch.Tensor], n_coef: int, terms, q: torch.Tensor,
+            psi: torch.Tensor, psi_inv: torch.Tensor,
+            n_inv: torch.Tensor) -> torch.Tensor:
+    """The fused product as the composition of the three above: operands
+    (G, P, N), the first ``n_coef`` transformed forward; output o is the
+    inverse of the sum mod q of the products of its terms' operands.
+    Returns (G, O, P, N)."""
+    x = [ntt_forward(a, q, psi) if i < n_coef else a
+         for i, a in enumerate(operands)]
+    qq = q.reshape(1, -1, 1)
+    outs = []
+    for out_terms in terms:
+        acc = None
+        for i, j in out_terms:
+            pr = mul_mod(x[i], x[j], q)
+            acc = pr if acc is None else (acc + pr) % qq
+        outs.append(ntt_inverse(acc, q, psi_inv, n_inv))
+    return torch.stack(outs, dim=1)

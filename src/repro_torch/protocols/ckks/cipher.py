@@ -18,13 +18,20 @@ What differs from the reference, and keeps its results bit for bit:
   stacks them along axis -2 / -3 and makes one call: every transform and
   every product of two residue rows goes through ``ntt.py``, which is a
   kernel launch on a card;
+- every product of polynomials (encrypt, decrypt, mul_tensor, relinearize,
+  mul_plain) is one fused call, ``ntt.ntt_mul``: forward transforms,
+  products and the inverse in one launch, which reads its operands where
+  they lie (views of the stacks, no gathers);
+- decrypt sums its components' products before the inverse transform,
+  not after (equal mod q: the transform is linear);
 - s^2 in the NTT domain is computed once, not at each use.
 Randomness stays on a host ``numpy.random.default_rng(seed)``, drawn in the
 reference's order; samples move to the device after they are drawn.  The
 encoding FFT and decode's CRT stay on the host.
 
 ``counts`` tallies the rows of every transform and product this context
-asked for, so a run can hold the kernels' launch counters against it.
+asked for (a fused call's under each of the three, and its output rows
+under ``ntt_mul``), so a run can hold the kernels' counters against it.
 """
 
 from __future__ import annotations
@@ -38,6 +45,25 @@ from ...kernels import resolve_device, to_device
 from . import ntt
 from .encoding import decode, encode
 from .params import CkksParams
+
+
+#: ntt_mul's terms (operand index pairs, one list per output): a row
+#: against a row
+ONE_TERM = (((0, 1),),)
+#: (a0, a1) x (b0, b1): a0 b0, a0 b1 + a1 b0, a1 b1
+TENSOR_TERMS = (((0, 2),), ((0, 3), (1, 2)), ((1, 3),))
+
+
+def sum_terms(k: int, outs: int = 1) -> tuple:
+    """Output h: the sum over i < k of operand i times operand
+    k + h k + i (coefficient rows against NTT-domain rows)."""
+    return tuple(tuple((i, k + h * k + i) for i in range(k))
+                 for h in range(outs))
+
+
+def plain_terms(k: int) -> tuple:
+    """Output i: operand i times operand k (the plaintext)."""
+    return tuple(((i, k),) for i in range(k))
 
 
 def _center(vals: torch.Tensor, q: int) -> torch.Tensor:
@@ -71,14 +97,29 @@ class CkksContext:
         else:
             self.s_int = np.asarray(keys[0], dtype=np.int64)
         self._init_secret()
-        # (b, a) per level, each (digits, basis, N), stacked as (2, ...)
+        # (b, a) per level, each (digits, basis, N), stacked as (2, ...),
+        # and the same cut into relinearize's fused calls
         self._evk: dict[int, torch.Tensor] = {}
+        self._relin_keys: dict[int, list] = {}
         for lvl in range(1, params.levels + 1):
             self._evk[lvl] = self._make_evk(lvl) if keys is None else \
                 self._dev(np.stack([np.asarray(m, dtype=np.int64)
                                     for m in keys[1][lvl]]))
+            self._relin_keys[lvl] = self._key_chunks(self._evk[lvl])
 
     # -- helpers --------------------------------------------------------------
+
+    def _key_chunks(self, evk: torch.Tensor) -> list:
+        """relinearize's fused calls at one level: (lo, hi, keys) for
+        digits lo..hi-1, as many digits as one launch takes (every digit
+        up to 5), ``keys`` the two halves' rows of those digits as one
+        stack (2 (hi - lo), B, N) (a view of ``evk`` where one call takes
+        every digit)."""
+        d = evk.shape[1]
+        c = max(k for k in range(1, d + 1)
+                if ntt.mul_fits(self.p.n_ring, k, 2 * k, 2 * k, 2))
+        return [(lo, min(lo + c, d), evk[:, lo:lo + c].flatten(0, 1))
+                for lo in range(0, d, c)]
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return to_device(arr, self.device)
@@ -108,13 +149,32 @@ class CkksContext:
         self.counts["ntt_forward"] += self._rows(a)
         return ntt.ntt_forward(a, primes)
 
-    def _inv(self, a: torch.Tensor, primes) -> torch.Tensor:
-        self.counts["ntt_inverse"] += self._rows(a)
-        return ntt.ntt_inverse(a, primes)
-
     def _mul(self, a: torch.Tensor, b: torch.Tensor, primes) -> torch.Tensor:
         self.counts["mul_mod"] += self._rows(a)
         return ntt.mul_mod(a, b, primes)
+
+    def _fused(self, coef: torch.Tensor, ntt_rows: torch.Tensor | None,
+               terms: tuple, primes: tuple) -> torch.Tensor:
+        """``ntt.ntt_mul`` over the stacks ``coef`` (..., C, P, N) and
+        ``ntt_rows`` (M, P, N), its rows counted as the three ops count
+        them: (..., O, P, N) for O = len(terms)."""
+        out = ntt.ntt_mul(coef, ntt_rows, terms, primes)
+        stacks = self._rows(out) // len(terms)      # groups x primes
+        c = self.counts
+        c["ntt_forward"] += stacks * coef.shape[-3]
+        c["mul_mod"] += stacks * sum(len(t) for t in terms)
+        c["ntt_inverse"] += stacks * len(terms)
+        c["ntt_mul"] += stacks * len(terms)
+        return out
+
+    def _spow_stack(self, k: int, n_primes: int) -> torch.Tensor:
+        """s^1..s^k over the chain's first ``n_primes`` primes, a view
+        (k, P, N) of the secret's stack, cached."""
+        key = ("view", k, n_primes)
+        got = self._spow_cache.get(key)
+        if got is None:
+            got = self._spow_cache[key] = self._spow[:k, :n_primes]
+        return got
 
     def _sample_error(self, n: int) -> np.ndarray:
         return np.round(self._rng.normal(0.0, self.p.noise_std, n)
@@ -133,7 +193,8 @@ class CkksContext:
         self._spow_cache: dict[tuple, torch.Tensor] = {}
 
     def _spow_rows(self, k: int, primes: tuple[int, ...]) -> torch.Tensor:
-        """s^1..s^k over ``primes`` (a subset of the chain): (k, P, N)."""
+        """s^1..s^k over ``primes`` (a subset of the chain): (k, P, N), a
+        copy made once (key generation's basis skips chain primes)."""
         key = (k, primes)
         got = self._spow_cache.get(key)
         if got is None:
@@ -164,7 +225,7 @@ class CkksContext:
         f = self._fwd(torch.remainder(ae[:, :, None, :], qb), basis)
         aj, ej = f[0], f[1]                               # (D, B, N)
         s, s2 = self._spow_rows(2, basis)                 # (B, N) each
-        as_ = self._mul(aj, s.expand_as(aj).contiguous(), basis)
+        as_ = self._mul(aj, s, basis)           # s: one stack for all D
         term = np.zeros((d, len(basis), 1), dtype=np.int64)
         for i, qi in enumerate(primes):
             qhat = Q // qi
@@ -200,9 +261,9 @@ class CkksContext:
         ae = torch.remainder(self._dev(np.stack([a_int, e_int]))[:, None, :],
                              q)
         aj, ej = ae[0], ae[1]
-        as_ = self._inv(self._mul(self._fwd(aj, primes),
-                                  self._spow_rows(1, tuple(primes))[0],
-                                  primes), primes)
+        # the chain's first P rows of s are the primes' (no gather)
+        as_ = self._fused(ae[:1], self._spow_stack(1, len(primes)),
+                          ONE_TERM, tuple(primes))[0]
         c0 = (pt_full + ej + (q - as_)) % q
         return torch.stack([c0, aj])
 
@@ -213,10 +274,10 @@ class CkksContext:
         acc = ct[0] % q
         k = ct.shape[0] - 1
         if k:
-            ck = self._fwd(ct[1:] % q, primes)
-            back = self._inv(self._mul(ck, self._spow_rows(k, primes),
-                                       primes), primes)
-            acc = (acc + back.sum(0)) % q
+            back = self._fused(ct[1:] % q,
+                               self._spow_stack(k, len(primes)),
+                               sum_terms(k), primes)[0]
+            acc = (acc + back) % q
         return acc
 
     def decode(self, pt: torch.Tensor, level: int,
@@ -273,14 +334,8 @@ class CkksContext:
         c1, c2: (..., 2, P, N)."""
         primes = tuple(self.p.level_primes(level))
         q = self.col(primes)
-        f = self._fwd(torch.cat([c1, c2], dim=-3) % q, primes)
-        # a0*b0, a0*b1, a1*b0, a1*b1 in one launch
-        lhs = f[..., [0, 0, 1, 1], :, :]
-        rhs = f[..., [2, 3, 2, 3], :, :]
-        pr = self._mul(lhs, rhs, primes)
-        mid = (pr[..., 1, :, :] + pr[..., 2, :, :]) % q
-        return self._inv(torch.stack([pr[..., 0, :, :], mid,
-                                      pr[..., 3, :, :]], dim=-3), primes)
+        x = torch.cat([c1, c2], dim=-3) % q              # a0, a1, b0, b1
+        return self._fused(x, None, TENSOR_TERMS, primes)
 
     def relinearize(self, ct3: torch.Tensor, level: int) -> torch.Tensor:
         """3-comp -> 2-comp at the same level (hybrid key switching)."""
@@ -291,11 +346,16 @@ class CkksContext:
         d = len(primes)
         qb = self.col(basis)
         # digit i (a residue < q_i), reduced mod every basis prime
-        dj = self._fwd(torch.remainder(ct3[2][:, None, :], qb), basis)
-        keys = self._evk[level]                            # (2, D, B, N)
-        prods = self._mul(dj.expand_as(keys).contiguous(), keys, basis)
-        acc = prods.sum(dim=1) % qb          # D products < 2^31 each
-        back = self._inv(acc, basis)                       # (2, B, N)
+        dj = torch.remainder(ct3[2][:, None, :], qb)      # (D, B, N)
+        # each key half's sum over digits, both halves from one transform
+        # of each digit; at a level of more digits than one launch takes,
+        # a sum of such calls over parts of the digits (equal mod q: the
+        # inverse transform is linear)
+        back = None                                        # (2, B, N)
+        for lo, hi, keys in self._relin_keys[level]:
+            part = self._fused(dj[lo:hi], keys, sum_terms(hi - lo, 2),
+                               basis)
+            back = part if back is None else (back + part) % qb
         q = self.col(primes)
         inv_np = self.inv_col(P, primes)
         dP = _center(back[:, d], P)                        # (2, N)
@@ -327,10 +387,8 @@ class CkksContext:
         primes = tuple(self.p.level_primes(level))
         q = self.col(primes)
         k = ct.shape[0]
-        f = self._fwd(torch.cat([ct, pt_full[None, :len(primes)]]) % q,
-                      primes)
-        out = self._inv(self._mul(f[:k], f[k:].expand(k, -1, -1)
-                                  .contiguous(), primes), primes)
+        x = torch.cat([ct, pt_full[None, :len(primes)]]) % q
+        out = self._fused(x, None, plain_terms(k), primes)
         return self.rescale(out, level)
 
     def add_plain(self, ct: torch.Tensor, pt_full: torch.Tensor,

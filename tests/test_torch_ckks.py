@@ -20,6 +20,7 @@ from repro_torch.api import JobSpec, Session
 from repro_torch.core.bytecode import encode_chunk
 from repro_torch.interop import ckks_context_from_keys
 from repro_torch.kernels.ntt import ops as tops
+from repro_torch.protocols.ckks import ntt as tntt
 from repro_torch.protocols.ckks.cipher import CkksContext
 from repro_torch.protocols.ckks.params import CkksParams
 
@@ -115,6 +116,147 @@ def test_every_op_matches(contexts):
             assert np.array_equal(ctx.decode(got, lvl, p.scale),
                                   ref.decode(pt, lvl, p.scale))
         assert ctx.counts["ntt_forward"] > 0 and ctx.counts["mul_mod"] > 0
+
+
+class _Unfused(CkksContext):
+    """The five ops that multiply polynomials as three calls each (forward
+    transforms, products, inverse transforms, with the gathers and copies
+    between them), as the port computed them before the fused product."""
+
+    def _inv(self, a, primes):
+        self.counts["ntt_inverse"] += self._rows(a)
+        return tntt.ntt_inverse(a, primes)
+
+    def encrypt(self, pt_full):
+        p = self.p
+        primes = p.primes
+        a_int = self._sample_uniform_int(p.n_ring)
+        e_int = self._sample_error(p.n_ring)
+        q = self.col(primes)
+        ae = torch.remainder(self._dev(np.stack([a_int, e_int]))[:, None, :],
+                             q)
+        aj, ej = ae[0], ae[1]
+        as_ = self._inv(self._mul(self._fwd(aj, primes),
+                                  self._spow_rows(1, tuple(primes))[0],
+                                  primes), primes)
+        c0 = (pt_full + ej + (q - as_)) % q
+        return torch.stack([c0, aj])
+
+    def decrypt(self, ct, level):
+        primes = tuple(self.p.level_primes(level))
+        q = self.col(primes)
+        acc = ct[0] % q
+        k = ct.shape[0] - 1
+        if k:
+            ck = self._fwd(ct[1:] % q, primes)
+            back = self._inv(self._mul(ck, self._spow_rows(k, primes),
+                                       primes), primes)
+            acc = (acc + back.sum(0)) % q
+        return acc
+
+    def mul_tensor(self, c1, c2, level):
+        primes = tuple(self.p.level_primes(level))
+        q = self.col(primes)
+        f = self._fwd(torch.cat([c1, c2], dim=-3) % q, primes)
+        lhs = f[..., [0, 0, 1, 1], :, :]
+        rhs = f[..., [2, 3, 2, 3], :, :]
+        pr = self._mul(lhs, rhs, primes)
+        mid = (pr[..., 1, :, :] + pr[..., 2, :, :]) % q
+        return self._inv(torch.stack([pr[..., 0, :, :], mid,
+                                      pr[..., 3, :, :]], dim=-3), primes)
+
+    def relinearize(self, ct3, level):
+        p = self.p
+        primes = tuple(p.level_primes(level))
+        basis = primes + (p.special_prime,)
+        d = len(primes)
+        qb = self.col(basis)
+        dj = self._fwd(torch.remainder(ct3[2][:, None, :], qb), basis)
+        keys = self._evk[level]
+        prods = self._mul(dj.expand_as(keys).contiguous(), keys, basis)
+        back = self._inv(prods.sum(dim=1) % qb, basis)
+        q = self.col(primes)
+        dP = back[:, d]
+        dP = torch.where(dP > p.special_prime // 2, dP - p.special_prime, dP)
+        t = (back[:, :d] + torch.remainder(-dP[:, None, :], q)) % q
+        return (ct3[:2] + t * self.inv_col(p.special_prime, primes)) % q
+
+    def mul_plain(self, ct, pt_full, level):
+        primes = tuple(self.p.level_primes(level))
+        q = self.col(primes)
+        k = ct.shape[0]
+        f = self._fwd(torch.cat([ct, pt_full[None, :len(primes)]]) % q,
+                      primes)
+        out = self._inv(self._mul(f[:k], f[k:].expand(k, -1, -1)
+                                  .contiguous(), primes), primes)
+        return self.rescale(out, level)
+
+
+@pytest.mark.parametrize("n", [128, 1024])
+def test_fused_ops_match_unfused(n):
+    """encrypt, decrypt (2 and 3 components), mul_tensor (one and a batch),
+    relinearize at both levels and mul_plain through the fused product
+    equal the three-call compositions bit for bit, from one seed; and the
+    rows each counts are the same but for decrypt's 3-component inverse,
+    which now transforms the sum (P rows, not 2 P)."""
+    p = CkksParams(n_ring=n, levels=2)
+    new = CkksContext(p, seed=SEED, device="cpu")
+    old = _Unfused(p, seed=SEED, device="cpu")
+    assert torch.equal(new._evk[2], old._evk[2])
+    rng = np.random.default_rng(n)
+    L = p.levels
+    q = np.asarray(p.primes, dtype=np.int64)[:, None]
+    pt = _t(rng.integers(0, 1 << 40, (L + 1, n)) % q)
+    new.counts.clear()
+    old.counts.clear()
+    cx = new.encrypt(pt)
+    assert torch.equal(cx, old.encrypt(pt))
+    cy = _t(rng.integers(0, 1 << 40, (2, L + 1, n)) % q)
+    batch = _t(rng.integers(0, 1 << 40, (3, 2, 2, L + 1, n)) % q)
+    for lvl in (L, L - 1):
+        c1, c2 = cx[:, :lvl + 1], cy[:, :lvl + 1]
+        t3 = new.mul_tensor(c1, c2, lvl)
+        assert torch.equal(t3, old.mul_tensor(c1, c2, lvl))
+        assert torch.equal(new.relinearize(t3, lvl),
+                           old.relinearize(t3, lvl))
+        assert torch.equal(new.decrypt(t3, lvl), old.decrypt(t3, lvl))
+        assert torch.equal(new.decrypt(c1, lvl), old.decrypt(c1, lvl))
+        assert torch.equal(new.mul_plain(c1, pt, lvl),
+                           old.mul_plain(c1, pt, lvl))
+        b1, b2 = batch[:, 0, :, :lvl + 1], batch[:, 1, :, :lvl + 1]
+        assert torch.equal(new.mul_tensor(b1, b2, lvl),
+                           old.mul_tensor(b1, b2, lvl))
+    # decrypt of a 3-component ct at each level: 3 and 2 rows fewer
+    assert old.counts["ntt_inverse"] - new.counts["ntt_inverse"] == 3 + 2
+    for kind in ("ntt_forward", "mul_mod"):
+        assert new.counts[kind] == old.counts[kind]
+
+
+@pytest.mark.parametrize("levels", [5, 7])
+def test_relinearize_deep_levels(levels):
+    """relinearize at levels of more digits than one fused launch takes
+    (3 D operands, above the kernel's 16 from D = 6): a sum of fused calls
+    over parts of the digits equals the three-call composition and the JAX
+    package's CkksContext bit for bit, at the top level, the first level
+    of one launch and the lowest, from the reference's keys; and from the
+    port's own keys it equals the composition over the same keys."""
+    n = 128
+    ref = RefContext(RefParams(n_ring=n, levels=levels), seed=SEED)
+    p = CkksParams(n_ring=n, levels=levels)
+    port = ckks_context_from_keys(p, ref.s_int, _ref_keys(ref),
+                                  device="cpu")
+    own = CkksContext(p, seed=SEED, device="cpu")
+    old = _Unfused(p, seed=SEED, device="cpu")
+    assert [len(own._relin_keys[lvl]) for lvl in (levels, 4, 1)] == \
+        [2, 1, 1]
+    rng = np.random.default_rng(levels)
+    for lvl in (levels, 4, 1):
+        q = np.asarray(p.level_primes(lvl), dtype=np.int64)[:, None]
+        ct3 = rng.integers(0, 1 << 40, (3, lvl + 1, n)) % q
+        want = ref.relinearize(ct3.astype(np.uint64), lvl)
+        assert _eq(port.relinearize(_t(ct3), lvl), want)
+        assert torch.equal(own.relinearize(_t(ct3), lvl),
+                           old.relinearize(_t(ct3), lvl))
 
 
 def test_batched_ops_match_one_by_one(contexts):

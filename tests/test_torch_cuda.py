@@ -25,6 +25,7 @@ from repro_torch.models import init_lm
 from repro_torch.serve.serve_step import Request
 from repro_torch.kernels.garble import ops, ref
 from repro_torch.kernels.ntt import ops as nops
+from repro_torch.protocols.ckks import cipher as ck
 from repro_torch.protocols.ckks.params import CkksParams
 
 GIDS = [0, (1 << 31) + 5, 1 << 40]
@@ -104,8 +105,10 @@ NTT_CASES = [(64, 3, 4), (1024, 1, 4), (1024, 12, 4), (8192, 5, 4),
                          ids=[f"{n}-{r}" if p == 4 else f"{n}-{r}x{p}"
                               for n, r, p in NTT_CASES])
 def test_ntt_kernels_match_plain(card, n, rows, n_primes):
-    """The three NTT kernels equal their plain versions bit for bit, one
-    launch each, with ``rows`` stacks of ``n_primes`` primes in it."""
+    """The four NTT kernels equal their plain versions bit for bit, one
+    launch each, with ``rows`` stacks of ``n_primes`` primes in it (the
+    fused one: the product of a and b); the fused launch adds the rows it
+    transformed and multiplied to the standalone kinds' rows."""
     p = CkksParams(n_ring=n, levels=2)
     primes = (p.primes + [p.special_prime])[:n_primes]
     rng = np.random.default_rng(n + rows)
@@ -115,13 +118,18 @@ def test_ntt_kernels_match_plain(card, n, rows, n_primes):
     f = nops.ntt_forward(a, primes)
     inv = nops.ntt_inverse(f, primes)
     prod = nops.mul_mod(f, b, primes)
+    fused = nops.ntt_mul([a, b], [], ck.ONE_TERM, primes)
     torch.cuda.synchronize()
     assert torch.equal(f.cpu(), nops.ntt_forward(a.cpu(), primes))
     assert torch.equal(inv, a)
     assert torch.equal(prod.cpu(), nops.mul_mod(f.cpu(), b.cpu(), primes))
+    assert torch.equal(fused.cpu(), nops.ntt_mul([a.cpu(), b.cpu()], [],
+                                                 ck.ONE_TERM, primes))
     c = nops.counts()
     assert c["launches"] == {k: 1 for k in nops.KINDS}
-    assert c["rows"] == {k: rows * len(primes) for k in nops.KINDS}
+    r = rows * len(primes)
+    assert c["rows"] == {"ntt_forward": 3 * r, "ntt_inverse": 2 * r,
+                         "mul_mod": 2 * r, "ntt_mul": r}
 
 
 @pytest.mark.cuda
@@ -134,6 +142,125 @@ def test_ntt_refuses_misaligned_operand(card):
     for fn in (nops.ntt_forward, nops.ntt_inverse):
         with pytest.raises(ValueError, match="16-byte"):
             fn(odd.view(2, 64), q)
+
+
+#: fused jobs as the cipher makes them, (name, n, P, groups, n_coef,
+#: n_ntt, terms): encrypt, decrypt of 3 components, the tensor product
+#: of one and of 24 groups, relinearize, mul_plain; then sums and rings
+#: beyond the main path's
+MUL_CASES = [("encrypt", 1024, 3, 1, 1, 1, ck.ONE_TERM),
+             ("decrypt3", 1024, 2, 1, 2, 2, ck.sum_terms(2)),
+             ("tensor", 1024, 3, 1, 4, 0, ck.TENSOR_TERMS),
+             ("tensor24", 1024, 3, 24, 4, 0, ck.TENSOR_TERMS),
+             ("relin", 1024, 4, 1, 3, 6, ck.sum_terms(3, 2)),
+             ("relin5", 1024, 4, 1, 5, 10, ck.sum_terms(5, 2)),
+             ("plain", 1024, 3, 1, 3, 0, ck.plain_terms(2)),
+             ("sum4", 1024, 4, 3, 8, 0,
+              (tuple((s, 4 + s) for s in range(4)),)),
+             ("runs", 1024, 1, 2, 8, 0,
+              tuple(tuple((i, (i + o) % 8) for i in range(8))
+                    for o in range(4))),
+             ("ring2", 2, 4, 5, 2, 0, ck.ONE_TERM),
+             ("ring64", 64, 4, 3, 2, 4, ck.sum_terms(2, 2)),
+             ("ring4096", 4096, 2, 3, 3, 3, ck.plain_terms(2)),
+             ("ring8192", 8192, 2, 3, 2, 4, ck.sum_terms(2, 2)),
+             ("rows4096", 1024, 1, 4096, 2, 0, ck.ONE_TERM)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,n_primes,groups,n_coef,n_ntt,terms",
+                         MUL_CASES, ids=[c[0] for c in MUL_CASES])
+def test_ntt_mul_matches_cpu(card, name, n, n_primes, groups, n_coef, n_ntt,
+                             terms):
+    """The fused kernel equals its CPU run (the plain composition) bit for
+    bit, the NTT-domain operands one stack broadcast over the groups as
+    the secret's and the keys' rows are."""
+    p = CkksParams(n_ring=n, levels=2)
+    primes = tuple((p.primes + [p.special_prime])[:n_primes])
+    rng = np.random.default_rng(n + groups + n_coef)
+    coef = [_rns_rows(rng, primes, groups, n, card) for _ in range(n_coef)]
+    ntt = [_rns_rows(rng, primes, 1, n, card)[0] for _ in range(n_ntt)]
+    nops.reset_counts()
+    got = nops.ntt_mul(coef, ntt, terms, primes)
+    torch.cuda.synchronize()
+    want = nops.ntt_mul([x.cpu() for x in coef], [x.cpu() for x in ntt],
+                        terms, primes)
+    assert torch.equal(got.cpu(), want)
+    assert nops.counts()["launches"]["ntt_mul"] == 1
+
+
+@pytest.mark.cuda
+def test_relinearize_deep_level_matches_cpu(card):
+    """relinearize at level 5 of a depth-5 chain (6 digits: two fused
+    launches, summed) and level 4 (one launch) on the card equals its CPU
+    run bit for bit, from the same keys."""
+    p = CkksParams(n_ring=1024, levels=5)
+    gpu = ck.CkksContext(p, seed=5, device=card)
+    cpu = ck.CkksContext(p, seed=5, device="cpu")
+    rng = np.random.default_rng(5)
+    nops.reset_counts()
+    for lvl in (5, 4):
+        q = np.asarray(p.level_primes(lvl), dtype=np.int64)[:, None]
+        ct3 = torch.from_numpy(rng.integers(0, 1 << 40, (3, lvl + 1, 1024))
+                               % q)
+        got = gpu.relinearize(ct3.to(card), lvl)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), cpu.relinearize(ct3, lvl))
+    assert nops.counts()["launches"]["ntt_mul"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("teams", [1, 2, 3, 4, 8])
+def test_ntt_mul_any_cluster_matches_cpu(card, teams):
+    """Clusters of 1 to 8 CTAs, reached through the job's shape (a CTA a
+    row of the larger of the coefficient operands and the outputs): 5
+    groups of ``teams`` coefficient rows at the chain's three primes, up
+    to 4 outputs, each a sum over every row in its own order, so that each
+    CTA takes the rows i with i % teams == its rank and reads the others
+    from the CTAs that hold them."""
+    p = CkksParams(n_ring=1024, levels=2)
+    primes = tuple(p.primes)
+    rng = np.random.default_rng(teams)
+    q = np.asarray(primes, dtype=np.int64)[:, None]
+    x = torch.from_numpy(rng.integers(0, 1 << 62, (5, teams, 3, 1024)) % q)
+    terms = tuple(tuple((i, (i + o) % teams) for i in range(teams))
+                  for o in range(min(teams, 4)))
+    got = nops.ntt_mul(x.to(card), None, terms, primes)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), nops.ntt_mul(x, None, terms, primes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows,broadcast", [(1024, 2, False),
+                                              (1024, 24, False),
+                                              (1024, 4096, False),
+                                              (64, 7, False), (2, 5, False),
+                                              (8192, 3, False),
+                                              (1024, 6, True)])
+def test_mul_mod_matches_cpu(card, n, rows, broadcast):
+    """The standalone product (16-byte rows, a prime a row) equals its CPU
+    run bit for bit, with b a row per row of a or one stack for all."""
+    p = CkksParams(n_ring=n, levels=2)
+    primes = p.primes + [p.special_prime]
+    rng = np.random.default_rng(n + rows)
+    a = _rns_rows(rng, primes, rows, n, card)
+    b = _rns_rows(rng, primes, 1 if broadcast else rows, n, card)
+    if broadcast:
+        b = b[0]
+    got = nops.mul_mod(a, b, primes)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), nops.mul_mod(a.cpu(), b.cpu(), primes))
+
+
+@pytest.mark.cuda
+def test_ntt_mul_refuses_misaligned_operand(card):
+    q = CkksParams(n_ring=64, levels=2).primes[0]
+    odd = torch.zeros(2 * 64 + 1, dtype=torch.int64, device=card)[1:]
+    good = torch.zeros((2, 64), dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        nops.ntt_mul(odd.view(2, 64), None, ck.ONE_TERM, q)
+    with pytest.raises(ValueError, match="16-byte"):
+        nops.mul_mod(odd.view(2, 64), good, q)
 
 
 @pytest.mark.cuda

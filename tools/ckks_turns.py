@@ -10,10 +10,12 @@ other, each from its checkout's root with that checkout's ``chip_smoke.py``
 and kernels (built once per checkout, then reused): the CKKS parity phase
 (a warm-up, as in the whole script), the CKKS main job (rmvmul n=24, ring
 1024, checked against the oracle), and the NTT record (device time per
-launch over the main job's launch sizes and at 4096 rows, profiler).  It
-prints one JSON line per run and the medians of each side; two versions
-compare only inside one call, in turns, because the host's pace moves
-between calls.  Needs a CUDA card.
+launch over the main job's launch sizes and at 4096 rows, profiler; and,
+where the checkout has the fused kernel, the three launches each fused
+one replaces, timed at the same sizes), with the launches of each kind.
+It prints one JSON line per run and the medians of each side; two
+versions compare only inside one call, in turns, because the host's pace
+moves between calls.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -41,6 +43,10 @@ out = {"execute_s": m["execute_s"], "he_ops_per_s": m["he_ops_per_s"]}
 for r in rows:
     out[r["name"] + "_ms"] = r["ms"]
     out[r["name"] + "_4096_ms"] = big[r["name"]]["ms"]
+for kind, k in counts["launches"].items():
+    out[kind + "_launches"] = k
+if "ntt_mul_main" in big:
+    out["replaced_ms"] = big["ntt_mul_main"]["unfused_ms"]
 print("RESULT " + json.dumps(out), flush=True)
 """
 
