@@ -48,16 +48,33 @@ in full float32.  Phases, each raising on failure:
                  decryption, tensor-product call and relinearization; the
                  standalone ones in key generation only); then rstats
                  n=128 at the same width;
-9. record        each kernel timed at its main path's launch sizes, beside
+9. baselines     (run after the serve phases) the paper's baselines
+                 beside the main jobs: the GC main job unbounded (the
+                 traced program over the whole virtual address space, no
+                 swap directive; outputs equal to the main phase's, the
+                 same AND count, every AND through the kernels), its
+                 execute s against the planned run's and the frame bytes
+                 of both; the CKKS main job planned and unbounded in
+                 turns, three rounds; each eviction policy (min_clean,
+                 lru, fifo, min with swap bypass, lru without prefetch)
+                 at merge n=1024 and the CKKS main job, swap counts equal
+                 to the JAX package's plans; the scalar engine loop
+                 against the batched one (and merge n=1024 unbounded on
+                 both) and the swap file against pinned pages on the same
+                 jobs; card against CPU for unbounded and scalar CKKS
+                 jobs at rings 128 and 1024 and an unbounded merge n=256;
+                 both main jobs unbounded under torch.profiler (the busy
+                 share);
+10. record       each kernel timed at its main path's launch sizes, beside
                  its bound, its plain version and (the product) the
                  PyTorch expression, with the host's time per wrapper call
                  and the empty kernel; the NTT kernels also at 4096 rows,
                  with a host breakdown of a wrapper call; the fused kernel
                  over its launch shapes, beside the three standalone
                  launches each one replaces, timed at the same sizes;
-10. profile      the GC path's shape at n=512 and the CKKS main job under
+11. profile      the GC path's shape at n=512 and the CKKS main job under
                  torch.profiler: device time by op, and the busy share;
-11. attn kernels the paged-attention kernels (split and combine) against
+12. attn kernels the paged-attention kernels (split and combine) against
                  their plain version on the card (rtol 1e-4, atol 1e-5),
                  f32 and bf16 pages: the JAX package's test shapes, qwen2's
                  head shape at batch 1 and 8 (ragged lengths, permuted
@@ -66,26 +83,26 @@ in full float32.  Phases, each raising on failure:
                  over host tables and over tables prepared with 2-page
                  chunks, stablelm-3b's heads (head_dim 80) and a group of
                  16;
-12. serve parity reduced qwen2 in f32 with nonzero biases served on the
+13. serve parity reduced qwen2 in f32 with nonzero biases served on the
                  card equals the same run with device="cpu": greedy tokens,
                  and teacher-forced logits within relative 1e-4, for the
                  paged and the contiguous decode;
-13. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
+14. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
                  run_server with the paged decode: 4 requests of 200-token
                  prompts, 64 new tokens each, every decode attention through
                  the kernels (252 steps x 28 layers wrapper calls, the
                  tables prepared once a step), held against the contiguous
                  decode teacher-forced on its tokens;
-14. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
+15. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
                  64 prompt tokens and 8 new ones, paged (7 steps x 32
                  layers wrapper calls) against its contiguous decode;
-15. attn record  a wrapper call timed at the main path's lengths and at the
+16. attn record  a wrapper call timed at the main path's lengths and at the
                  32768-token batch: device time summed over the kernels it
                  launches (split and combine also apart, profiler), the
                  host's time per call over prepared and over host tables
                  (events), beside the bound, the plain version and gather +
                  scaled_dot_product_attention;
-16. serve profile a few decode steps of the serve main job under
+17. serve profile a few decode steps of the serve main job under
                  torch.profiler: device time by op and the busy share.
 
 The last four lines are a JSON summary of the run's headline numbers, the
@@ -125,6 +142,7 @@ from repro_torch.kernels.paged_attn import ref as pref  # noqa: E402
 from repro_torch.launch.serve import paged_cache, run_server  # noqa: E402
 from repro_torch.models import init_lm, lm_decode, lm_prefill  # noqa: E402
 from repro_torch.core.bytecode import Op  # noqa: E402
+from repro_torch.core.engine import SWAP_DIRECTIVES  # noqa: E402
 from repro_torch.protocols.ckks import cipher as ck  # noqa: E402
 from repro_torch.protocols.ckks.driver import homomorphic_ops  # noqa: E402
 from repro_torch.protocols.ckks.params import CkksParams  # noqa: E402
@@ -658,9 +676,9 @@ def phase_parity(dev) -> dict:
     return {"card_s": t_g, "cpu_s": t_c, "sync_card_s": t_s}
 
 
-def phase_main(dev) -> tuple[dict, dict]:
-    """The main path; returns the kernels' counts from its run and its
-    end-to-end metrics."""
+def phase_main(dev) -> tuple[dict, dict, dict]:
+    """The main path; returns the kernels' counts from its run, its
+    end-to-end metrics and its outputs."""
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_counts()
     s, out, seconds = _run(MAIN, dev)
@@ -697,7 +715,7 @@ def phase_main(dev) -> tuple[dict, dict]:
                "swap_bytes": [rbytes, wbytes],
                "frame_bytes": s.engine_stats[0].frame_bytes,
                "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
-    return counts, metrics
+    return counts, metrics, out
 
 
 def _dev_us(ev) -> float:
@@ -1139,7 +1157,8 @@ def expected_ntt_launches(s, levels: int) -> dict:
     that is not a plaintext), decryption (OUTPUT), relinearization
     (CT_RELIN, and CT_MUL's second), mul_plain (CT_MUL_PLAIN) and tensor
     product (CT_MUL, and each CT_MUL_NR call: a batched group of two or
-    more instructions is one call); no standalone inverse.  Up to levels
+    more instructions is one call, on the scalar loop each instruction
+    is); no standalone inverse.  Up to levels
     4: from 6 digits a relinearization is a launch for each part of its
     digits (``CkksContext._key_chunks``)."""
     if levels > 4:
@@ -1149,9 +1168,12 @@ def expected_ntt_launches(s, levels: int) -> dict:
     n_in = sum(1 for ins in s.plan()[0].instrs
                if ins.op == Op.INPUT and ins.imm[1] != 1)
     sched = s.engines[0].batch_schedule
-    sizes = np.diff(sched.bounds)
-    batched = sizes[(sched.group_op == int(Op.CT_MUL_NR)) & (sizes >= 2)]
-    mul_nr = ops_.count(Op.CT_MUL_NR) - int((batched - 1).sum())
+    mul_nr = ops_.count(Op.CT_MUL_NR)
+    if sched is not None:       # the scalar loop makes a call each
+        sizes = np.diff(sched.bounds)
+        batched = sizes[(sched.group_op == int(Op.CT_MUL_NR)) &
+                        (sizes >= 2)]
+        mul_nr -= int((batched - 1).sum())
     fused = (n_in + ops_.count(Op.OUTPUT) + ops_.count(Op.CT_RELIN) +
              2 * ops_.count(Op.CT_MUL) + ops_.count(Op.CT_MUL_PLAIN) +
              mul_nr)
@@ -1500,6 +1522,339 @@ def phase_ckks_profile(dev) -> dict:
         log(f"  {_dev_us(e) / 1e3:10.2f} ms  {e.count:8d}x  {e.key[:70]}")
         top.append([e.key[:60], _dev_us(e) / 1e3, e.count])
     return {"execute_ms": wall_ms, "busy_ms": busy_ms, "top": top}
+
+# ---------------------------------------------------------------------------
+# the baselines: unbounded memory, the eviction policies and swap bypass, the
+# scalar engine loop, the swap file
+# ---------------------------------------------------------------------------
+
+#: the GC main job unbounded: the traced program over the whole virtual
+#: address space (no budget, no swap directive)
+MAIN_UNBOUNDED = dict(n=MAIN["n"], plan_mode="unbounded")
+#: the CKKS main job unbounded
+CKKS_UNBOUNDED = dict(workload="rmvmul", n=CKKS_MAIN["n"],
+                      plan_mode="unbounded", ckks_ring=1024, ckks_levels=2)
+#: the policies' GC job: the main job's shape at a sixteenth of its size
+POLICY_GC = dict(n=1024, memory_budget=0.4, lookahead=10_000,
+                 prefetch_pages=4)
+#: (policy, swap_bypass, prefetch pages or None for the job's) -> the JAX
+#: package's scalar-core plan of POLICY_GC and of CKKS_MAIN: (swap-ins,
+#: swap-outs, prefetched, bypass hits)
+POLICY_PLANS = {
+    ("min", False, None): ((363, 363, 363, 0), (646, 309, 646, 0)),
+    ("min_clean", False, None): ((363, 363, 363, 0), (646, 309, 646, 0)),
+    ("lru", False, None): ((533, 533, 533, 0), (908, 390, 908, 0)),
+    ("fifo", False, None): ((533, 533, 533, 0), (1004, 486, 1004, 0)),
+    ("min", True, None): ((363, 363, 358, 5), (646, 309, 640, 6)),
+    ("lru", False, 0): ((531, 531, 0, 0), (861, 365, 0, 0)),
+}
+#: card-against-CPU jobs of the new path: the ckks parity phase's rmvmul
+#: jobs unbounded, and on the scalar loop at their budgets
+BASELINE_PARITY = [
+    (wl, n, ring, knobs) for wl, n, ring, frames, prefetch in CKKS_PARITY
+    if wl == "rmvmul"
+    for knobs in (dict(plan_mode="unbounded"),
+                  dict(memory_budget=frames, prefetch_pages=prefetch,
+                       exec_backend="scalar"))]
+
+
+def _same(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and \
+        all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _gc_checked_run(job: dict, dev) -> tuple:
+    """Run one GC merge job with the half-gates counters set to 0 just
+    before it and read just after; check that every AND gate of both
+    parties went through the kernels."""
+    ops.reset_counts()
+    s, out, seconds = _run(job, dev)
+    c = ops.counts()
+    ands = tuple(g.ands for g in s.gate_counts)
+    if (c["garble_ands"], c["eval_ands"]) != ands or not ands[0]:
+        raise AssertionError(f"ANDs through the kernels {c} != gate counts "
+                             f"{ands}")
+    return s, out, seconds, c
+
+
+def _no_swaps(s) -> None:
+    """An unbounded run: no swap directive in the program or the engine."""
+    if s.plan()[0].phase != "virtual" or any(
+            ins.op in SWAP_DIRECTIVES for ins in s.plan()[0].instrs):
+        raise AssertionError("the unbounded program holds swap directives")
+    if any(e.directives or e.swap_ins or e.swap_outs or e.io_read_bytes
+           for e in s.engine_stats):
+        raise AssertionError("the unbounded run swapped")
+
+
+def _baseline_gc_main(dev, main_out: dict, planned: dict) -> dict:
+    # the peak above what earlier phases still hold (the served model)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    s, out, seconds, c = _gc_checked_run(MAIN_UNBOUNDED, dev)
+    _no_swaps(s)
+    if not _same(out, main_out):
+        raise AssertionError("unbounded GC main outputs != the main phase's")
+    ands = s.gate_counts[0].ands
+    if ands != planned["ands"]:
+        raise AssertionError(f"unbounded ANDs {ands} != planned "
+                             f"{planned['ands']}")
+    t = s.timings["execute_s"]
+    mem = torch.cuda.max_memory_allocated(dev) - held
+    fb = s.engine_stats[0].frame_bytes
+    ratio = planned["execute_s"] / t
+    log(f"baselines: GC main unbounded, merge n={MAIN['n']} per party, "
+        f"{len(out)} output chunks checked against the oracle and equal to "
+        f"the main phase's; 0 swap directives; {ands} AND gates per party "
+        f"(== planned), all through the kernels ({c['garble_launches']} / "
+        f"{c['eval_launches']} launches)")
+    log(f"  execute {t:.3f} s ({ands / t:.4e} AND gates/s) against planned "
+        f"{planned['execute_s']:.3f} s ({planned['ands_per_s']:.4e}): "
+        f"planned / unbounded execute {ratio:.4f}")
+    log(f"  frame bytes per party: unbounded {fb}, planned "
+        f"{planned['frame_bytes']}; max_memory_allocated unbounded {mem} "
+        f"(above the {held} bytes held before it), planned "
+        f"{planned['max_memory_allocated']}")
+    return {"execute_s": t, "ands_per_s": ands / t, "all_s": seconds,
+            "planned_over_unbounded": ratio, "frame_bytes": fb,
+            "planned_frame_bytes": planned["frame_bytes"],
+            "max_memory_allocated": mem,
+            "planned_max_memory_allocated": planned["max_memory_allocated"],
+            "launches": [c["garble_launches"], c["eval_launches"]]}
+
+
+def _baseline_ckks_turns(dev) -> tuple[dict, dict]:
+    """The CKKS main job planned and unbounded in turns, three rounds;
+    returns the metrics and the last planned run (session, outputs)."""
+    runs = {"planned": [], "unbounded": []}
+    info = {}
+    for _ in range(3):
+        for name, spec in (("planned", CKKS_MAIN),
+                           ("unbounded", CKKS_UNBOUNDED)):
+            s, out, _, c = _ckks_checked_run(spec, dev)
+            if name == "unbounded":
+                _no_swaps(s)
+            else:
+                last = (s, out)
+            runs[name].append(s.timings["execute_s"])
+            info[name] = {"frame_bytes": s.engine_stats[0].frame_bytes,
+                          "launches": c["launches"]}
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    ratio = med["planned"] / med["unbounded"]
+    log(f"baselines: CKKS main rmvmul n={CKKS_MAIN['n']}, ring 1024, in "
+        f"turns (planned, unbounded) x 3, outputs checked against the "
+        f"oracle: execute s planned {runs['planned']}, unbounded "
+        f"{runs['unbounded']}; medians {med['planned']:.4f} / "
+        f"{med['unbounded']:.4f} (planned / unbounded {ratio:.4f})")
+    for k, v in info.items():
+        log(f"  {k}: frame bytes {v['frame_bytes']}, launches "
+            f"{v['launches']} (as the instruction mix gives)")
+    return {"execute_s": runs, "medians": med,
+            "planned_over_unbounded": ratio,
+            **{f"{k}_frame_bytes": v["frame_bytes"] for k, v in info.items()},
+            "fused_launches": {k: v["launches"]["ntt_mul"]
+                               for k, v in info.items()}}, last
+
+
+def _check_plan(s, want: tuple, what: str) -> None:
+    """The plan's swaps equal the JAX package's, and every engine ran each
+    of the program's swap-ins and swap-outs."""
+    r = s.plan_reports[0]
+    got = (r.replacement.swap_ins, r.replacement.swap_outs,
+           r.schedule.prefetched, r.schedule.bypass_hits)
+    if got != want:
+        raise AssertionError(f"{what}: plan {got} != the reference's {want}")
+    ops_ = [ins.op for ins in s.plan()[0].instrs]
+    moves = (ops_.count(Op.SWAP_IN) + ops_.count(Op.ISSUE_SWAP_IN),
+             ops_.count(Op.SWAP_OUT) + ops_.count(Op.ISSUE_SWAP_OUT))
+    for e in s.engine_stats:
+        if (e.swap_ins, e.swap_outs) != moves:
+            raise AssertionError(f"{what}: the engine swapped "
+                                 f"{e.swap_ins}/{e.swap_outs}, the program "
+                                 f"holds {moves}")
+
+
+def _baseline_policies(dev) -> tuple[dict, tuple]:
+    """Every policy and swap bypass at the GC and CKKS jobs; returns their
+    swap counts and times, and the GC "min" run (the batched, pinned-RAM
+    comparator of the scalar and swap-file runs)."""
+    rows = {}
+    for (policy, bypass, prefetch), (gc_want, ck_want) in \
+            POLICY_PLANS.items():
+        name = policy + ("+bypass" if bypass else "") + \
+            ("" if prefetch is None else f" prefetch {prefetch}")
+        knobs = dict(policy=policy, swap_bypass=bypass)
+        if prefetch is not None:
+            knobs["prefetch_pages"] = prefetch
+        gc = _gc_checked_run({**POLICY_GC, **knobs}, dev)
+        _check_plan(gc[0], gc_want, f"merge n=1024 {name}")
+        ck = _ckks_checked_run({**CKKS_MAIN, **knobs}, dev)
+        _check_plan(ck[0], ck_want, f"ckks main {name}")
+        if (policy, bypass, prefetch) == ("min", False, None):
+            gc_min = gc
+        rows[name] = {"gc_swaps": list(gc_want),
+                      "gc_execute_s": gc[0].timings["execute_s"],
+                      "ckks_swaps": list(ck_want),
+                      "ckks_execute_s": ck[0].timings["execute_s"]}
+        log(f"baselines: {name}: merge n=1024 swaps (in, out, prefetched, "
+            f"bypassed) {gc_want}, execute {rows[name]['gc_execute_s']:.3f}"
+            f" s; ckks main {ck_want}, execute "
+            f"{rows[name]['ckks_execute_s']:.3f} s; outputs checked")
+    return rows, gc_min
+
+
+def _baseline_scalar(dev, gc_min: tuple, ckks_planned: tuple) -> dict:
+    """The scalar engine loop against the batched one on the same jobs."""
+    res = {}
+    for name, (bs, bout, _, bc), run in (
+            ("gc", gc_min, lambda: _gc_checked_run(
+                dict(POLICY_GC, exec_backend="scalar"), dev)),
+            ("ckks", (*ckks_planned, None, None), lambda: _ckks_checked_run(
+                dict(CKKS_MAIN, exec_backend="scalar"), dev))):
+        s, out, _, c = run()
+        if not _same(out, bout):
+            raise AssertionError(f"{name}: scalar outputs != batched")
+        if name == "gc":
+            ands = [g.ands for g in s.gate_counts]
+            if ands != [g.ands for g in bs.gate_counts]:
+                raise AssertionError(f"scalar ANDs {ands} != batched")
+            launches = {"scalar": c["garble_launches"],
+                        "batched": bc["garble_launches"]}
+        else:
+            launches = {"scalar": c["launches"]["ntt_mul"],
+                        "batched": expected_ntt_launches(
+                            bs, 2)["ntt_mul"]}
+        secs = {"scalar": s.timings["execute_s"],
+                "batched": bs.timings["execute_s"]}
+        res[name] = {"execute_s": secs, "launches": launches}
+        log(f"baselines: scalar loop, {name}: outputs == batched; execute "
+            f"s scalar {secs['scalar']:.3f}, batched {secs['batched']:.3f}; "
+            f"{'garble' if name == 'gc' else 'fused'} launches {launches}")
+        if name == "gc":
+            res["gc_unbounded"] = _unbounded_both_loops(dev, bout, secs)
+    return res
+
+
+def _unbounded_both_loops(dev, planned_out: dict, planned_s: dict) -> dict:
+    """The policies' GC job unbounded on both engine loops, beside its
+    planned runs: which loop the planned / unbounded ratio comes from."""
+    res = {}
+    for loop in ("scalar", "batched"):
+        s, out, _, c = _gc_checked_run(
+            dict(n=POLICY_GC["n"], plan_mode="unbounded",
+                 exec_backend=loop), dev)
+        _no_swaps(s)
+        if not _same(out, planned_out):
+            raise AssertionError(f"merge n={POLICY_GC['n']} unbounded on "
+                                 f"the {loop} loop != planned")
+        t = s.timings["execute_s"]
+        res[loop] = {"execute_s": t, "garble_launches": c["garble_launches"],
+                     "planned_over_unbounded": planned_s[loop] / t}
+        log(f"  merge n={POLICY_GC['n']} unbounded, {loop} loop: execute "
+            f"{t:.3f} s, {c['garble_launches']} garble launches; planned / "
+            f"unbounded {planned_s[loop] / t:.4f}")
+    return res
+
+
+def _baseline_memmap(dev, gc_min: tuple, ckks_planned: tuple) -> dict:
+    """The swap file against pinned host pages on the same jobs."""
+    res = {}
+    for name, ram, run in (
+            ("gc", gc_min[:2], lambda: _gc_checked_run(
+                dict(POLICY_GC, storage="memmap"), dev)),
+            ("ckks", ckks_planned, lambda: _ckks_checked_run(
+                dict(CKKS_MAIN, storage="memmap"), dev))):
+        s, out, _, _ = run()
+        if not _same(out, ram[1]):
+            raise AssertionError(f"{name}: memmap outputs != ram")
+        swaps = [_swaps(x) for x in (s, ram[0])]
+        if swaps[0] != swaps[1] or not swaps[0][0]:
+            raise AssertionError(f"{name}: memmap swaps {swaps[0]} != ram "
+                                 f"{swaps[1]}")
+        left = [st.path for st in s.storages if os.path.exists(st.path)]
+        if left:
+            raise AssertionError(f"swap files left behind: {left}")
+        secs = {"memmap": s.timings["execute_s"],
+                "ram": ram[0].timings["execute_s"]}
+        res[name] = {"execute_s": secs, "swaps": list(swaps[0])}
+        log(f"baselines: swap file, {name}: outputs, swaps and bytes "
+            f"{swaps[0]} == ram; file removed; execute s memmap "
+            f"{secs['memmap']:.3f}, ram {secs['ram']:.3f}")
+    return res
+
+
+def _baseline_parity(dev) -> dict:
+    """The new path on the card against device="cpu", bit for bit."""
+    res = {}
+    for wl, n, ring, knobs in BASELINE_PARITY:
+        spec = dict(workload=wl, n=n, ckks_ring=ring, **knobs)
+        gpu, out_g, t_g = _ckks_job(spec, dev)
+        cpu, out_c, t_c = _ckks_job(spec, "cpu")
+        what = f"{wl} ring {ring} {knobs}"
+        if not _same(out_g, out_c):
+            raise AssertionError(f"{what}: card and CPU outputs differ")
+        if not torch.equal(gpu.engines[0].memory.cpu(),
+                           cpu.engines[0].memory):
+            raise AssertionError(f"{what}: card and CPU engine memory "
+                                 f"differ")
+        res[f"{wl}-{ring}-{knobs.get('plan_mode', 'scalar')}"] = \
+            {"card_s": t_g, "cpu_s": t_c}
+    job = dict(PARITY, memory_budget=None, prefetch_pages=0,
+               plan_mode="unbounded")
+    gpu, out_g, t_g = _run(job, dev, digest=True)
+    cpu, out_c, t_c = _run(job, "cpu", digest=True)
+    _no_swaps(gpu)
+    if not _same(out_g, out_c) or gpu.table_digest != cpu.table_digest or \
+            [g.ands for g in gpu.gate_counts] != \
+            [g.ands for g in cpu.gate_counts]:
+        raise AssertionError("unbounded merge: card and CPU differ")
+    res["merge-unbounded"] = {"card_s": t_g, "cpu_s": t_c}
+    log(f"baselines parity: rmvmul n=4 unbounded and scalar at rings 128 "
+        f"and 1024 (outputs and final engine memory), merge n={PARITY['n']} "
+        f"unbounded (outputs, ANDs, table sha256 {gpu.table_digest[:16]}): "
+        f"card == CPU")
+    return res
+
+
+def _baseline_profile(dev) -> dict:
+    """The GC and CKKS main jobs unbounded under torch.profiler: device
+    busy share of the execute stage (a lower bound on the unprofiled
+    run's) and device time by op."""
+    from torch.profiler import ProfilerActivity, profile
+    res = {}
+    for name, s in (("gc", Session(JobSpec("merge", **MAIN_UNBOUNDED),
+                                   device=dev)),
+                    ("ckks", Session(JobSpec(**CKKS_UNBOUNDED),
+                                     device=dev))):
+        s.plan()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            s.execute(real=True, check=True)
+        wall_ms = s.timings["execute_s"] * 1e3
+        evs = sorted(prof.key_averages(), key=_dev_us, reverse=True)
+        busy_ms = sum(_dev_us(e) for e in evs) / 1e3
+        log(f"baselines profile: {name} main unbounded, execute "
+            f"{wall_ms:.1f} ms under the profiler, device busy "
+            f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.3f} of it)")
+        top = []
+        for e in evs[:6]:
+            log(f"  {_dev_us(e) / 1e3:10.2f} ms  {e.count:8d}x  "
+                f"{e.key[:70]}")
+            top.append([e.key[:60], _dev_us(e) / 1e3, e.count])
+        res[name] = {"execute_ms": wall_ms, "busy_ms": busy_ms, "top": top}
+    return res
+
+
+def phase_baselines(dev, main_out: dict, planned: dict) -> dict:
+    """The paper's baselines on the card, beside the planned main jobs."""
+    res = {"gc_main": _baseline_gc_main(dev, main_out, planned)}
+    res["ckks_main"], ckks_planned = _baseline_ckks_turns(dev)
+    res["policies"], gc_min = _baseline_policies(dev)
+    res["scalar"] = _baseline_scalar(dev, gc_min, ckks_planned)
+    res["memmap"] = _baseline_memmap(dev, gc_min, ckks_planned)
+    res["parity"] = _baseline_parity(dev)
+    res["profile"] = _baseline_profile(dev)
+    return res
+
 
 # ---------------------------------------------------------------------------
 # the serving path: paged-attention kernel, parity, main job, record, profile
@@ -2176,11 +2531,15 @@ def main() -> None:
     parity = timed("parity", phase_parity, dev)
     ckks_parity = timed("ckks parity", phase_ckks_parity, dev)
     serve_parity = timed("serve parity", phase_serve_parity, dev)
-    counts, metrics = timed("main", phase_main, dev)
+    counts, metrics, main_out = timed("main", phase_main, dev)
     ntt_counts, ckks_metrics = timed("ckks main", phase_ckks_main, dev)
     attn_counts, serve_metrics, model = timed("serve main", phase_serve_main,
                                               dev)
     stablelm = timed("serve stablelm", phase_serve_stablelm, dev)
+    # after the serve phases, which so run in the process as they did
+    # before the baselines existed
+    baselines = timed("baselines", phase_baselines, dev, main_out, metrics)
+    del main_out
     rows, gate_launch = timed("record", kernel_record, dev, counts, errs)
     ntt_rows, ntt_big = timed("ntt record", ntt_record, dev, ntt_counts,
                               ntt_errs)
@@ -2199,7 +2558,8 @@ def main() -> None:
         "ckks_profile": ckks_profiled, "serve_main": serve_metrics,
         "serve_parity": serve_parity, "attn": attn_timing,
         "serve_stablelm": stablelm,
-        "serve_profile": serve_profiled, "phases_s": phases,
+        "serve_profile": serve_profiled, "baselines": baselines,
+        "phases_s": phases,
         "total_s": time.perf_counter() - t_all}))
     print(smi, flush=True)
     print(json.dumps({"kernels": rows + ntt_rows + [attn_row]}), flush=True)

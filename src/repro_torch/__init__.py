@@ -4,10 +4,12 @@
 Same layout and names as the JAX package, so each module's counterpart is
 easy to find; the port imports neither JAX nor anything of ``repro``.
 It runs planned secure-computation jobs end to end on one card: trace →
-plan (MIN replacement + scheduled prefetching swaps) → execute, with the
-engine's frames in device memory, swap storage in pinned host memory, and
-every AND gate (garbled circuits) or NTT and modular product (CKKS)
-through hand-written kernels (``kernels/garble``, ``kernels/ntt``).
+plan (replacement under MIN, MinClean, LRU or FIFO + scheduled
+prefetching swaps) → execute, with the engine's frames in device memory,
+swap storage in pinned host memory or a swap file, and every AND gate
+(garbled circuits) or NTT and modular product (CKKS) through hand-written
+kernels (``kernels/garble``, ``kernels/ntt``); and the paper's unbounded
+baseline (``plan_mode="unbounded"``) and scalar engine loop.
 
     from repro_torch import JobSpec, Session
     spec = JobSpec("merge", n=16384, memory_budget=0.4, prefetch_pages=64)

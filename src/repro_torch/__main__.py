@@ -1,17 +1,27 @@
-"""``python -m repro_torch``: run a planned job on the card.
+"""``python -m repro_torch``: run a job on the card.
 
     python -m repro_torch run --workload merge -n 16384 --budget 0.4 \\
         --prefetch 64 --lookahead 10000 --real --check [--device cpu]
     python -m repro_torch run --workload rmvmul -n 24 --budget 0.4 \\
         --prefetch 8 --ckks-ring 1024 --check [--device cpu]
+    python -m repro_torch run --workload merge -n 32 --mode unbounded \\
+        --real --check [--device cpu]
+    python -m repro_torch run --workload merge -n 32 --budget 6 \\
+        --prefetch 1 --policy lru --swap-bypass --exec-backend scalar \\
+        --storage memmap --real --check [--device cpu]
 
 ``run`` traces, plans and executes in-process (trace → plan → execute)
-and prints a JSON summary: timings, swap traffic, outputs, and for a
-garbled-circuit job its AND gates, for a CKKS job its instructions,
-homomorphic ops per second and transforms.  Garbled circuits run only
-with real two-party crypto (``--real``); CKKS is real crypto either way.
-The plaintext oracle, saved plans and the fleet launcher wait for later
-slices.
+and prints a JSON summary: timings, swap traffic, the engine's frame
+bytes, outputs, and for a garbled-circuit job its AND gates, for a CKKS
+job its instructions, homomorphic ops per second and transforms.  The
+knobs are the JAX package's: ``--mode`` (memory, or unbounded: the
+traced program over the whole virtual address space, no budget; the
+default is unbounded without ``--budget``), ``--policy``,
+``--swap-bypass``, ``--exec-backend`` (batched by default, or scalar) and
+``--storage`` (ram: pinned host pages, or memmap: a swap file).  Garbled
+circuits run only with real two-party crypto (``--real``); CKKS is real
+crypto either way.  The plaintext oracle, the streaming planner, saved
+plans, the overlap backend and the fleet launcher wait for later slices.
 """
 
 from __future__ import annotations
@@ -53,22 +63,36 @@ def _run(args: argparse.Namespace) -> int:
         print("error: garbled circuits run only with real two-party "
               "crypto; pass --real", file=sys.stderr)
         return 2
-    spec = JobSpec(args.workload, n=args.n, memory_budget=args.budget,
-                   lookahead=args.lookahead, prefetch_pages=args.prefetch,
-                   ckks_ring=args.ckks_ring, ckks_levels=args.ckks_levels)
+    mode = args.mode or ("memory" if args.budget is not None
+                         else "unbounded")
+    try:
+        spec = JobSpec(args.workload, n=args.n, memory_budget=args.budget,
+                       lookahead=args.lookahead, prefetch_pages=args.prefetch,
+                       policy=args.policy, swap_bypass=args.swap_bypass,
+                       plan_mode=mode, exec_backend=args.exec_backend,
+                       storage=args.storage, ckks_ring=args.ckks_ring,
+                       ckks_levels=args.ckks_levels)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     s = Session(spec, device=args.device)
     out = s.execute(real=True, check=args.check)
     summary = {
         "device": str(s.device),
         "spec": {"workload": s.spec.workload, "n": s.spec.n,
+                 "plan_mode": s.spec.plan_mode,
                  "memory_budget": s.spec.memory_budget,
                  "num_frames": s.config.num_frames if s.config else None,
                  "prefetch_pages": s.config.prefetch_pages if s.config
-                 else None, "lookahead": s.spec.lookahead},
+                 else None, "lookahead": s.spec.lookahead,
+                 "policy": s.spec.policy, "swap_bypass": s.spec.swap_bypass,
+                 "exec_backend": s.spec.exec_backend,
+                 "storage": s.spec.storage},
         "timings_s": s.timings,
         **_protocol_summary(s),
         "swap_ins": [e.swap_ins for e in s.engine_stats],
         "swap_outs": [e.swap_outs for e in s.engine_stats],
+        "frame_bytes": [e.frame_bytes for e in s.engine_stats],
         "outputs": len(out),
         "checked": bool(args.check),
     }
@@ -87,10 +111,25 @@ def main(argv: list[str] | None = None) -> int:
     r.add_argument("--workload", default="merge")
     r.add_argument("-n", type=int, default=None,
                    help="records per party (default: the workload's)")
-    r.add_argument("--budget", type=_parse_budget, required=True,
-                   help="frames (int) or working-set fraction (float)")
+    r.add_argument("--budget", type=_parse_budget, default=None,
+                   help="frames (int) or working-set fraction (float); "
+                   "omit for unbounded")
     r.add_argument("--prefetch", type=int, default=0)
     r.add_argument("--lookahead", type=int, default=10_000)
+    r.add_argument("--mode", default=None, choices=("memory", "unbounded"),
+                   help="plan mode (default: memory with --budget, "
+                   "unbounded without)")
+    r.add_argument("--policy", default="min",
+                   choices=("min", "min_clean", "lru", "fifo"),
+                   help="eviction policy")
+    r.add_argument("--swap-bypass", action="store_true",
+                   help="serve a read from its page's pending write")
+    r.add_argument("--exec-backend", dest="exec_backend", default="batched",
+                   choices=("scalar", "batched"),
+                   help="engine loop: a batch schedule, or one instruction "
+                   "at a time; outputs are identical")
+    r.add_argument("--storage", default="ram", choices=("ram", "memmap"),
+                   help="swap storage: pinned host pages or a swap file")
     r.add_argument("--real", action="store_true",
                    help="real two-party garbled circuits (the only GC mode; "
                    "CKKS needs no flag)")

@@ -10,6 +10,15 @@ and their AND gates go through the half-gates kernels.  A CKKS job runs
 one engine whose transforms and products go through the NTT kernels.  The
 device is the card unless the caller passes ``device="cpu"``; without a
 card and without that, the Session raises.
+
+The knobs are the JAX package's, with its names and values: ``plan_mode``
+"memory" (planned paging at a budget) or "unbounded" (the baseline: the
+traced program over the whole virtual address space); ``policy`` (MIN,
+MinClean, LRU, FIFO) and ``swap_bypass``; ``exec_backend`` "batched" (a
+batch schedule, the port's default) or "scalar" (one instruction at a
+time; the reference's default); ``storage`` "ram" (pinned host pages) or
+"memmap" (a swap file).  The streaming planner and the overlap backend
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -21,9 +30,11 @@ import numpy as np
 import torch
 
 from .core.bytecode import Program
-from .core.engine import Engine, EngineStats
+from .core.engine import Engine, EngineStats, swapped_pages
 from .core.liveness import stripped_touches, working_set_pages
 from .core.planner import PlanConfig, PlanReport, plan
+from .core.replacement import POLICIES
+from .core.storage import MemmapStorage, PinnedStorage
 from .core.transport import InprocTransport, LinkStats
 from .core.workers import EngineJob, run_engines
 from .exec.batched_ckks import BatchedCkksDriver
@@ -44,6 +55,16 @@ CKKS_SEED = 0xCEC5
 #: the largest |output - oracle| a CKKS job may show (the JAX package's)
 CKKS_ATOL = 2e-2
 
+#: the JAX package's plan modes and execution backends; those not ported
+#: yet name the ROADMAP item that ports them
+PLAN_MODES = ("memory", "streaming", "unbounded")
+EXEC_BACKENDS = ("scalar", "batched", "overlap")
+NOT_PORTED = {"streaming": "the streaming planner (ROADMAP Queue 1 item 6)",
+              "overlap": "the overlap backend (ROADMAP Queue 1 item 4)"}
+
+#: swap storages by the JAX package's names; "ram" is pinned host memory
+STORAGES = {"ram": PinnedStorage, "memmap": MemmapStorage}
+
 
 @dataclasses.dataclass(frozen=True)
 class JobSpec:
@@ -53,19 +74,40 @@ class JobSpec:
     count; a ``float`` in (0, 1] is a fraction of the working set, resolved
     with the JAX package's clamping (at least ``8 + prefetch_pages``
     frames, below the working set so there is real memory pressure, the
-    prefetch buffer at most a quarter of the budget)."""
+    prefetch buffer at most a quarter of the budget).  ``None`` requires
+    ``plan_mode="unbounded"``, which takes no budget."""
     workload: str
     n: int | None = None                  # records per party (None: default)
     memory_budget: int | float | None = None
-    lookahead: int = 10_000               # plan knobs (paper l and B)
+    lookahead: int = 10_000               # plan knobs (paper l, B, policy)
     prefetch_pages: int = 0
+    policy: str = "min"
+    swap_bypass: bool = False
+    plan_mode: str = "memory"             # memory | unbounded
+    exec_backend: str = "batched"         # batched | scalar
+    storage: str = "ram"                  # ram | memmap
     ckks_ring: int | None = None          # CKKS N override (benchmarks)
     ckks_levels: int | None = None
 
     def __post_init__(self):
-        if self.memory_budget is None:
-            raise ValueError("a memory_budget is needed (frames or "
-                             "working-set fraction)")
+        for field, value, allowed in (
+                ("plan_mode", self.plan_mode, PLAN_MODES),
+                ("exec_backend", self.exec_backend, EXEC_BACKENDS),
+                ("policy", self.policy, tuple(POLICIES)),
+                ("storage", self.storage, tuple(STORAGES))):
+            if value not in allowed:
+                raise ValueError(f"{field} must be one of {allowed}, got "
+                                 f"{value!r}")
+            if value in NOT_PORTED:
+                raise NotImplementedError(f"{field}={value!r} is not ported "
+                                          f"yet: {NOT_PORTED[value]}")
+        if self.plan_mode == "unbounded":
+            if self.memory_budget is not None:
+                raise ValueError("unbounded jobs take no memory_budget")
+        elif self.memory_budget is None:
+            raise ValueError(f"plan_mode={self.plan_mode!r} needs a "
+                             f"memory_budget (frames or working-set "
+                             f"fraction)")
         if isinstance(self.memory_budget, float) and \
                 not 0.0 < self.memory_budget <= 1.0:
             raise ValueError("fractional memory_budget must be in (0, 1]")
@@ -87,7 +129,8 @@ def resolve_plan_config(spec: JobSpec, working_set: int) -> PlanConfig:
     else:
         budget = int(b)
     return PlanConfig(num_frames=budget, lookahead=spec.lookahead,
-                      prefetch_pages=prefetch)
+                      prefetch_pages=prefetch, policy=spec.policy,
+                      swap_bypass=spec.swap_bypass)
 
 
 def check_outputs(w: Workload, n: int, outputs: dict[int, np.ndarray],
@@ -116,8 +159,9 @@ class Session:
     """Staged trace→plan→execute over one JobSpec on one device.
 
     After ``execute()``: ``engines`` (each holding its final ``memory``),
-    their ``engine_stats``, ``timings`` (``trace_s``, ``plan_s``,
-    ``batch_schedule_s``, ``execute_s``) and the protocol's records.
+    their ``engine_stats`` and (closed) ``storages``, ``timings``
+    (``trace_s``, ``plan_s``, ``batch_schedule_s`` on the batched backend,
+    ``execute_s``) and the protocol's records.
     Garbled circuits: ``gate_counts`` (garbler, evaluator),
     ``transport_stats`` of the party link and, with ``digest=True``,
     ``table_digest`` of the garbled-table stream.  CKKS:
@@ -135,6 +179,7 @@ class Session:
         self.plan_reports: list[PlanReport] = []
         self.engines: list[Engine] = []
         self.engine_stats: list[EngineStats] = []
+        self.storages: list = []
         self.gate_counts: list[GateCounts] = []
         self.transport_stats: dict[tuple[int, int, int], LinkStats] = {}
         self.timings: dict[str, float] = {}
@@ -172,9 +217,15 @@ class Session:
         return working_set_pages(stripped_touches(prog)[1])
 
     def plan(self) -> list[Program]:
-        """Replacement + scheduling under the spec's budget (§6.1)."""
+        """Replacement + scheduling under the spec's budget (§6.1).  An
+        unbounded job's "plan" is the traced program itself, with an empty
+        report and no config."""
         if self._planned is None:
             progs = self.trace()
+            if self.spec.plan_mode == "unbounded":
+                self._planned = list(progs)
+                self.plan_reports = [PlanReport() for _ in progs]
+                return self._planned
             t0 = time.perf_counter()
             self.config = resolve_plan_config(self.spec, self.working_set())
             mem, report = plan(progs[0], self.config)
@@ -201,9 +252,11 @@ class Session:
             raise NotImplementedError("the plaintext driver is not ported "
                                       "yet; run with real=True")
         planned = self.plan()
-        t0 = time.perf_counter()
-        sched = build_batch_schedule(planned[0])
-        self.timings["batch_schedule_s"] = time.perf_counter() - t0
+        sched = None
+        if self.spec.exec_backend == "batched":
+            t0 = time.perf_counter()
+            sched = build_batch_schedule(planned[0])
+            self.timings["batch_schedule_s"] = time.perf_counter() - t0
         if self.protocol == "ckks":
             outputs = self._execute_ckks(planned[0], sched)
         else:
@@ -213,16 +266,33 @@ class Session:
                           **self._extra())
         return outputs
 
-    def _run(self, jobs: list[EngineJob], transport: InprocTransport
-             ) -> None:
+    def _run(self, prog: Program, drivers: list, batched_cls, sched,
+             transport: InprocTransport) -> None:
+        """Run one engine per driver (party ``p`` is ``drivers[p]``) over
+        ``prog``: through ``batched_cls(driver)`` when there is a batch
+        schedule, the driver itself on the scalar loop, each with a fresh
+        storage of the spec's kind for the pages ``prog`` writes out.  The
+        storages are built inside the execute time and closed at its end,
+        also when a run fails."""
         t0 = time.perf_counter()
         try:
+            jobs = []
+            for p, drv in enumerate(drivers):
+                storage = STORAGES[self.spec.storage](
+                    swapped_pages(prog), (prog.page_slots, drv.lane),
+                    drv.dtype, self.device)
+                self.storages.append(storage)
+                jobs.append(EngineJob(
+                    prog, batched_cls(drv) if sched is not None else drv,
+                    self.device, storage, sched, tag=f"party{p}/worker0"))
             self.engines = run_engines(jobs, transport)
             self.engine_stats = [e.stats for e in self.engines]
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         finally:
             transport.close()
+            for storage in self.storages:
+                storage.close()
         self.timings["execute_s"] = time.perf_counter() - t0
 
     def _execute_gc(self, planned: Program, sched, digest: bool
@@ -233,9 +303,7 @@ class Session:
         ch = PartyChannel(transport, src=0, dst=1, digest=digest)
         gd = GarblerDriver(ch, dev, w.inputs(n, 0, 1), seed=GARBLER_SEED)
         ed = EvaluatorDriver(ch, dev, w.inputs(n, 0, 1))
-        self._run([EngineJob(planned, BatchedGCDriver(d), dev, sched,
-                             tag=f"party{p}/worker0")
-                   for p, d in enumerate((gd, ed))], transport)
+        self._run(planned, [gd, ed], BatchedGCDriver, sched, transport)
         self.gate_counts = [gd.gates.counts, ed.gates.counts]
         self.transport_stats = transport.stats()
         if digest:
@@ -257,8 +325,7 @@ class Session:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.timings["keygen_s"] = time.perf_counter() - t0
-        self._run([EngineJob(planned, BatchedCkksDriver(drv), dev, sched,
-                             tag="party0/worker0")], transport)
+        self._run(planned, [drv], BatchedCkksDriver, sched, transport)
         self.timings["execute_s"] += self.timings["keygen_s"]
         self.ckks_counts = dict(drv.ctx.counts)
         self.op_counts = {op.name: k for op, k in drv.op_counts.items()}

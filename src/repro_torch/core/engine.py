@@ -1,15 +1,24 @@
 """MAGE's execution engine (§5, §7.1), on PyTorch: the port's copy of
 ``repro.core.engine`` for one worker per party.
 
-An interpreter for memory programs, walked in the order of their batch
-schedule (``exec.batching``).  Program data lives in one tensor on the
-engine's device, the MAGE-physical address space of ``num_frames`` pages:
-each instruction's operands are views into it, swap directives move pages
-between it, the prefetch buffer and pinned host storage (``core.storage``),
-and everything else is delegated to the protocol driver.  A plan without a
-prefetch buffer keeps synchronous SWAP_IN / SWAP_OUT, which run as well.
-The unbounded (virtual-phase) run, the scalar loop and NET_* directives
-(multi-worker jobs) wait for later slices.
+An interpreter for programs in two phases:
+
+* 'memory'  — the planned program: program data lives in one tensor on the
+  engine's device, the MAGE-physical address space of ``num_frames``
+  pages; swap directives move pages between it, the prefetch buffer and
+  the swap storage (``core.storage``: pinned host pages or a swap file).
+  A plan without a prefetch buffer keeps synchronous SWAP_IN / SWAP_OUT,
+  which run as well.
+* 'virtual' — the unbounded baseline: the traced program itself, over a
+  tensor of the whole MAGE-virtual address space (``vspace_slots``), with
+  no prefetch buffer and no storage; FREE is a no-op and a swap directive
+  is an error.
+
+Each instruction's operands are views into the memory tensor; everything
+that is not a directive goes to the protocol driver.  The engine walks a
+batch schedule (``exec.batching``) when it is given one, and otherwise the
+scalar loop: one instruction at a time, in program order.  NET_*
+directives (multi-worker jobs) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import torch
 
 from .bytecode import (_IMM_OFF, _IN_OFF, _OUT_OFF, Instr, Op, Program,
                        iter_record_chunks, unpack_heads)
-from .storage import PinnedStorage, SwapIO
+from .storage import swap_io
 
 if TYPE_CHECKING:
     from ..exec.batching import BatchSchedule
@@ -64,8 +73,15 @@ class EngineStats:
     #: of execute_batch calls they collapsed into
     batched_instructions: int = 0
     batches: int = 0
-    #: device bytes of the physical frames plus the prefetch buffer
+    #: device bytes the engine allocated: the physical frames plus the
+    #: prefetch buffer, or (unbounded) the whole virtual address space
     frame_bytes: int = 0
+
+
+#: the directives that move pages to and from storage
+SWAP_DIRECTIVES = frozenset({Op.SWAP_IN, Op.SWAP_OUT, Op.ISSUE_SWAP_IN,
+                             Op.FINISH_SWAP_IN, Op.COPY_OUT,
+                             Op.ISSUE_SWAP_OUT, Op.FINISH_SWAP_OUT})
 
 
 def swapped_pages(prog: Program) -> set[int]:
@@ -75,29 +91,41 @@ def swapped_pages(prog: Program) -> set[int]:
 
 
 class Engine:
-    """Interprets one memory-phase ``Program`` on ``device``; ``driver``
-    is a batched driver (``exec.base.BatchedProtocolDriver``)."""
+    """Interprets one memory- or virtual-phase ``Program`` on ``device``.
+
+    ``storage`` holds the pages the program writes out (unused by a
+    virtual program); its owner closes it.  With a ``batch_schedule`` the
+    engine runs the batched path and ``driver`` is a batched driver
+    (``exec.base.BatchedProtocolDriver``); without one it runs the scalar
+    loop, and any driver will do."""
 
     def __init__(self, program: Program, driver, device: torch.device,
-                 batch_schedule: BatchSchedule):
-        if program.phase != "memory":
-            raise ValueError(f"expected a memory program, got phase "
-                             f"{program.phase!r}")
+                 storage=None, batch_schedule: BatchSchedule | None = None):
+        if program.phase not in ("memory", "virtual"):
+            raise ValueError(f"expected a memory or virtual program, got "
+                             f"phase {program.phase!r}")
         self.prog = program
         self.driver = driver
         self.batch_schedule = batch_schedule
         psize = program.page_slots
-        self.memory = torch.zeros((max(program.num_frames, 1) * psize,
+        if program.phase == "virtual":
+            slots = max(program.vspace_slots, 1)
+        else:
+            slots = max(program.num_frames, 1) * psize
+        self.memory = torch.zeros((slots, driver.lane), dtype=driver.dtype,
+                                  device=device)
+        self.pf = self.io = None
+        allocated = self.memory.numel()
+        if program.phase == "memory":
+            if storage is None:
+                raise ValueError("a memory program needs a swap storage")
+            self.pf = torch.zeros((max(program.prefetch_slots, 1), psize,
                                    driver.lane), dtype=driver.dtype,
                                   device=device)
-        self.pf = torch.zeros((max(program.prefetch_slots, 1), psize,
-                               driver.lane), dtype=driver.dtype,
-                              device=device)
-        storage = PinnedStorage(swapped_pages(program), (psize, driver.lane),
-                                driver.dtype, device)
-        self.io = SwapIO(storage, self.pf, device)
-        self.stats = EngineStats(frame_bytes=(
-            self.memory.numel() + self.pf.numel()) * self.memory.element_size())
+            self.io = swap_io(storage, self.pf, device)
+            allocated += self.pf.numel()
+        self.stats = EngineStats(
+            frame_bytes=allocated * self.memory.element_size())
 
     def _view(self, span) -> torch.Tensor:
         addr, n = span
@@ -110,12 +138,26 @@ class Engine:
         try:
             with (torch.cuda.device(dev) if dev.type == "cuda"
                   else contextlib.nullcontext()):
-                self._run_loop()
+                if self.batch_schedule is None:
+                    self._run_scalar()
+                else:
+                    self._run_loop()
+                if self.io is not None:
+                    self.io.flush()
         finally:
-            self.io.close()
-            self.stats.io_read_bytes = self.io.bytes_read
-            self.stats.io_write_bytes = self.io.bytes_written
+            if self.io is not None:
+                self.io.close()
+                self.stats.io_read_bytes = self.io.bytes_read
+                self.stats.io_write_bytes = self.io.bytes_written
         return self.stats
+
+    def _run_scalar(self) -> None:
+        """The scalar loop: every instruction through ``_exec_one``, in
+        program order."""
+        exec_one = self._exec_one
+        for instr in self.prog.instrs:
+            exec_one(instr)
+        self.driver.finalize()
 
     def _run_loop(self) -> None:
         """Walk the precomputed batch schedule.
@@ -164,6 +206,9 @@ class Engine:
         op = instr.op
         st = self.stats
         io = self.io
+        if io is None and op in SWAP_DIRECTIVES:
+            raise ValueError(f"{op.name} in a {self.prog.phase} program: an "
+                             f"unbounded run has no swap storage")
         if op == Op.SWAP_IN:
             st.directives += 1
             st.swap_ins += 1

@@ -1,8 +1,8 @@
 """MAGE planner stage 2: replacement (§6.3).
 
 The port's copy of the scalar reference core of ``repro.core.replacement``
-with Belady's MIN (the record-array core and the other policies wait; the
-array core is instruction-identical, tests/test_array_core.py).
+(the record-array core waits; it is instruction-identical,
+tests/test_array_core.py), with the reference's four eviction policies.
 
 Applies Belady's MIN directly — the clairvoyance that is unrealizable for an
 OS is free here, because the bytecode *is* the access pattern.  Emits
@@ -14,6 +14,9 @@ Write-back rule (see liveness.py): a dirty victim is written back only if its
 next READ is finite; otherwise it is dropped — no later instruction can
 observe it.  A swap-in is elided when the missing page is about to be fully
 overwritten by the touching instruction (write-allocate elision).
+
+Policies beyond MIN are the baselines the paper measures against: LRU and
+FIFO (what an OS would do) and MinClean, a dirty-aware MIN.
 """
 
 from __future__ import annotations
@@ -117,7 +120,85 @@ class MinPolicy(_HeapPolicy):
         super().__init__(maximize=True)
 
 
-POLICIES: dict[str, type[EvictionPolicy]] = {"min": MinPolicy}
+class MinCleanPolicy(_HeapPolicy):
+    """Beyond-paper: farthest-first, but among pages whose next use lies
+    within a window of the farthest (or is also INF), prefer a CLEAN page —
+    skipping a write-back.  Attacks the 2x write slack plain MIN concedes
+    (§6.3 footnote 4; exact minimization is NP-hard, Farach & Liberatore)."""
+
+    name = "min_clean"
+
+    def __init__(self, rel_delta: float = 0.05, abs_delta: int = 256):
+        super().__init__(maximize=True)
+        self.rel_delta = rel_delta
+        self.abs_delta = abs_delta
+
+    def evict(self, pinned, resident, dirty) -> int:
+        stash: list[tuple[int, int]] = []
+        first = self._pop_valid(pinned, resident, stash)
+        if first is None:
+            for e in stash:
+                heapq.heappush(self._heap, e)
+            raise RuntimeError(
+                "no evictable page: num_frames smaller than one instruction's "
+                "working set — raise the memory budget or shrink DSL chunks")
+        fk, fp = first
+        far = self._sign * fk  # == -fk: the farthest next-use
+        if fp not in dirty:
+            return self._finish(fp, stash)
+        if far >= INF:
+            window_lo = INF
+        else:
+            window_lo = far - max(self.abs_delta, int(self.rel_delta * far))
+        rejected: list[tuple[int, int]] = [first]
+        chosen = None
+        while True:
+            nxt = self._pop_valid(pinned, resident, stash)
+            if nxt is None:
+                break
+            key = self._sign * nxt[0]
+            if key < window_lo:
+                rejected.append(nxt)
+                break
+            if nxt[1] not in dirty:
+                chosen = nxt[1]
+                break
+            rejected.append(nxt)
+        if chosen is None:
+            chosen = fp  # no clean page in window: plain MIN choice
+        for e in rejected:
+            if e[1] != chosen:
+                stash.append(e)
+        return self._finish(chosen, stash)
+
+
+class LruPolicy(_HeapPolicy):
+    name = "lru"
+
+    def __init__(self):
+        super().__init__(maximize=False)
+
+    def touch(self, page: int, next_use: int, now: int) -> None:
+        self._push(page, now)
+
+
+class FifoPolicy(_HeapPolicy):
+    name = "fifo"
+
+    def __init__(self):
+        super().__init__(maximize=False)
+
+    def touch(self, page: int, next_use: int, now: int) -> None:
+        if page not in self._cur:
+            self._push(page, now)
+
+
+POLICIES: dict[str, type[EvictionPolicy]] = {
+    "min": MinPolicy,
+    "min_clean": MinCleanPolicy,
+    "lru": LruPolicy,
+    "fifo": FifoPolicy,
+}
 
 
 @dataclasses.dataclass
@@ -326,7 +407,13 @@ def plan_replacement(prog: Program, num_frames: int,
     out: list[Instr] = []
     instrs, touches = stripped_touches(prog)
     _check_budget(num_frames, max_pages_per_instr(touches))
-    pol = POLICIES[policy]() if isinstance(policy, str) else policy
+    if isinstance(policy, str):
+        if policy not in POLICIES:
+            raise ValueError(f"policy must be one of {tuple(POLICIES)}, "
+                             f"got {policy!r}")
+        pol = POLICIES[policy]()
+    else:
+        pol = policy
     stats = ReplacementStats(num_frames=num_frames,
                              num_vpages=touches.num_pages,
                              policy=getattr(pol, "name", str(policy)))

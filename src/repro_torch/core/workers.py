@@ -47,13 +47,16 @@ def trace_workers(fn: Callable[[ProgramOptions], None], *, protocol: str,
 
 @dataclasses.dataclass
 class EngineJob:
-    """One engine to run: a memory program, its batched driver, device and
-    batch schedule (``exec.batching``).  ``tag`` labels failures (e.g.
-    ``"party0/worker0"``)."""
+    """One engine to run: a memory or virtual program, its driver, device
+    and swap storage (``core.storage``; its owner closes it).  With a
+    ``batch_schedule`` (``exec.batching``) the engine runs the batched path
+    and the driver is a batched one; ``None`` means the scalar loop.
+    ``tag`` labels failures (e.g. ``"party0/worker0"``)."""
     program: Program
     driver: ProtocolDriver
     device: Any
-    batch_schedule: Any
+    storage: Any = None
+    batch_schedule: Any = None
     tag: Any = None
 
 
@@ -72,7 +75,7 @@ def run_engines(jobs: Sequence[EngineJob],
         try:
             with transport.baton:
                 eng = Engine(job.program, job.driver, job.device,
-                             job.batch_schedule)
+                             job.storage, job.batch_schedule)
                 eng.run()
                 results[k] = eng
         except Exception as e:  # surfaced below

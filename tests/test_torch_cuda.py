@@ -1,6 +1,7 @@
 """The port's CUDA kernels (half gates, NTT, modular product, paged decode
 attention) against their plain PyTorch versions, on the card, and small
-jobs (a GC merge, a CKKS job, a reduced qwen2 served with the paged and the
+jobs (a GC merge, CKKS jobs, unbounded jobs on both engine loops, jobs that
+swap through the swap file, a reduced qwen2 served with the paged and the
 contiguous decode) on the card against their CPU runs.  Kernels have no interpret mode, so these tests skip
 without a card; run them there with
 
@@ -12,6 +13,7 @@ ones.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -275,6 +277,59 @@ def test_small_ckks_job_on_card_matches_cpu(card):
     assert got.engine_stats[0].swap_ins > 0
     assert c["rows"] == {k: got.ckks_counts[k] for k in nops.KINDS}
     assert sum(c["plain_calls"].values()) == 0
+
+
+#: swap-file jobs at ring 128: prefetched reads, a bypassed read (the
+#: page served from its pending write's prefetch slot) and sync swaps
+MEMMAP_CARD = [("rmvmul", dict(n=4, memory_budget=3, prefetch_pages=1)),
+               ("rmvmul", dict(n=4, memory_budget=3, prefetch_pages=1,
+                               swap_bypass=True)),
+               ("rstats", dict(n=8, memory_budget=3, prefetch_pages=0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wl,job", MEMMAP_CARD,
+                         ids=["prefetch", "bypass", "sync"])
+def test_memmap_swaps_on_card(card, wl, job):
+    """The swap file's card path (device pages through pinned bounce pages
+    to the file and back) equals pinned storage on the card and the CPU
+    run, engine memory bit for bit; the file is gone afterwards."""
+    runs = [Session(JobSpec(wl, storage=st, **job), device=d)
+            for st, d in (("memmap", card), ("ram", card), ("memmap", "cpu"))]
+    outs = [s.execute(check=True) for s in runs]
+    for s, out in zip(runs[1:], outs[1:]):
+        assert all(np.array_equal(outs[0][k], out[k]) for k in out)
+        assert torch.equal(runs[0].engines[0].memory.cpu(),
+                           s.engines[0].memory.cpu())
+    swaps = [(e.swap_ins, e.swap_outs, e.io_read_bytes, e.io_write_bytes)
+             for e in (s.engine_stats[0] for s in runs)]
+    assert swaps[0] == swaps[1] == swaps[2] and swaps[0][1] > 0
+    assert not os.path.exists(runs[0].storages[0].path)
+
+
+@pytest.mark.cuda
+def test_unbounded_on_card_matches_cpu(card):
+    """Unbounded jobs (the whole virtual address space on the card) on
+    both backends equal their CPU runs: a GC merge's outputs and garbled
+    tables, a CKKS job's outputs and final engine memory."""
+    for backend in ("batched", "scalar"):
+        spec = JobSpec("merge", n=32, plan_mode="unbounded",
+                       exec_backend=backend)
+        got, want = Session(spec, device=card), Session(spec, device="cpu")
+        out = got.execute(real=True, check=True, digest=True)
+        ref_out = want.execute(real=True, check=True, digest=True)
+        assert all(np.array_equal(out[k], ref_out[k]) for k in ref_out)
+        assert got.table_digest == want.table_digest
+        assert got.engine_stats[0].swap_ins == 0
+        spec = JobSpec("rmvmul", n=4, plan_mode="unbounded",
+                       exec_backend=backend)
+        got, want = Session(spec, device=card), Session(spec, device="cpu")
+        out = got.execute(check=True)
+        ref_out = want.execute(check=True)
+        assert all(np.array_equal(out[k], ref_out[k]) for k in ref_out)
+        assert torch.equal(got.engines[0].memory.cpu(),
+                           want.engines[0].memory)
+        assert got.engines[0].memory.shape[0] == got.plan()[0].vspace_slots
 
 
 #: (batch, q_heads, kv_heads, head_dim, page_size, max_pages): shapes of
