@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 It drives the port's three paths: the planned two-party garbled merge
-(GC), the planned CKKS jobs and serving qwen2-1.5b (and, briefly,
-stablelm-3b) with the paged decode.
+(GC) and the other GC workloads and apps, the planned CKKS jobs and
+serving qwen2-1.5b (and, briefly, stablelm-3b) with the paged decode.
 TF32 stays off for the whole run: the plain versions' float32 products run
 in full float32.  Phases, each raising on failure:
 
@@ -65,16 +65,31 @@ in full float32.  Phases, each raising on failure:
                  jobs at rings 128 and 1024 and an unbounded merge n=256;
                  both main jobs unbounded under torch.profiler (the busy
                  share);
-10. record       each kernel timed at its main path's launch sizes, beside
+10. gc workloads (after the baselines) the rest of the GC workloads and
+                 the apps, two-party on the batched loop, each checked
+                 against its oracle: ljoin n=256, mvmul n=192 and
+                 binfclayer n=2048 at budget 0.4 with 64 prefetch pages
+                 (binfclayer also unbounded), sort n=16384 unbounded and
+                 n=512 planned (8 prefetch pages), passreuse n=1024, pir
+                 n=256 at ring 1024; every AND gate through the half-gates
+                 kernels (8 to 128 gates a launch), pir's transforms and
+                 products in the launches its instruction mix gives; each
+                 GC job again through the plaintext oracle driver (the
+                 sorts held bit for bit to the same runs on the CPU); card
+                 against CPU at the port's test sizes (outputs, AND count,
+                 table digest; the plaintext driver's outputs and final
+                 engine memory; pir's outputs and memory), the CPU runs in
+                 a process of their own meanwhile;
+11. record       each kernel timed at each path's launch sizes, beside
                  its bound, its plain version and (the product) the
                  PyTorch expression, with the host's time per wrapper call
                  and the empty kernel; the NTT kernels also at 4096 rows,
                  with a host breakdown of a wrapper call; the fused kernel
                  over its launch shapes, beside the three standalone
                  launches each one replaces, timed at the same sizes;
-11. profile      the GC path's shape at n=512 and the CKKS main job under
+12. profile      the GC path's shape at n=512 and the CKKS main job under
                  torch.profiler: device time by op, and the busy share;
-12. attn kernels the paged-attention kernels (split and combine) against
+13. attn kernels the paged-attention kernels (split and combine) against
                  their plain version on the card (rtol 1e-4, atol 1e-5),
                  f32 and bf16 pages: the JAX package's test shapes, qwen2's
                  head shape at batch 1 and 8 (ragged lengths, permuted
@@ -83,26 +98,26 @@ in full float32.  Phases, each raising on failure:
                  over host tables and over tables prepared with 2-page
                  chunks, stablelm-3b's heads (head_dim 80) and a group of
                  16;
-13. serve parity reduced qwen2 in f32 with nonzero biases served on the
+14. serve parity reduced qwen2 in f32 with nonzero biases served on the
                  card equals the same run with device="cpu": greedy tokens,
                  and teacher-forced logits within relative 1e-4, for the
                  paged and the contiguous decode;
-14. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
+15. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
                  run_server with the paged decode: 4 requests of 200-token
                  prompts, 64 new tokens each, every decode attention through
                  the kernels (252 steps x 28 layers wrapper calls, the
                  tables prepared once a step), held against the contiguous
                  decode teacher-forced on its tokens;
-15. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
+16. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
                  64 prompt tokens and 8 new ones, paged (7 steps x 32
                  layers wrapper calls) against its contiguous decode;
-16. attn record  a wrapper call timed at the main path's lengths and at the
+17. attn record  a wrapper call timed at the main path's lengths and at the
                  32768-token batch: device time summed over the kernels it
                  launches (split and combine also apart, profiler), the
                  host's time per call over prepared and over host tables
                  (events), beside the bound, the plain version and gather +
                  scaled_dot_product_attention;
-17. serve profile a few decode steps of the serve main job under
+18. serve profile a few decode steps of the serve main job under
                  torch.profiler: device time by op and the busy share.
 
 The last four lines are a JSON summary of the run's headline numbers, the
@@ -115,7 +130,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import hashlib
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -131,7 +148,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.api import JobSpec, Session  # noqa: E402
+from repro_torch.api import JobSpec, Session, check_outputs  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.kernels.garble import kernel as gk, ops, ref  # noqa: E402
 from repro_torch.kernels.ntt import kernel as nk  # noqa: E402
@@ -147,6 +164,7 @@ from repro_torch.protocols.ckks import cipher as ck  # noqa: E402
 from repro_torch.protocols.ckks.driver import homomorphic_ops  # noqa: E402
 from repro_torch.protocols.ckks.params import CkksParams  # noqa: E402
 from repro_torch.serve.serve_step import Request, serve_step  # noqa: E402
+from repro_torch.workloads import get as get_workload  # noqa: E402
 
 #: H100 SXM peaks: HBM3 bandwidth (NVIDIA data sheet), and 32-bit
 #: three-input logic operations (LOP3) per second: 64 per SM per clock (CUDA
@@ -158,8 +176,11 @@ LOP3_PER_S = 132 * 64 * 1.98e9
 #: multiply-add, shifts, compares and min/max at compute capability 9.0
 INT_OPS_PER_S = 132 * 64 * 1.98e9
 
-KERNEL_SIZES = (1, 16, 32, 37, 64, 4096, 1 << 20)
+KERNEL_SIZES = (1, 8, 16, 32, 37, 64, 128, 4096, 1 << 20)
 GIDS = (0, (1 << 31) + 5, 1 << 40)
+#: the record phase times each half-gates kernel at this many of its paths'
+#: launch sizes, those with the most launches
+RECORD_SIZES = 12
 
 
 def log(msg: str) -> None:
@@ -746,22 +767,26 @@ def phase_profile(dev) -> dict:
     return {"n": PROFILED["n"], "execute_ms": wall_ms, "busy_ms": busy_ms}
 
 
-def kernel_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
-    """Time each kernel at every launch size the main path used and report
-    launch-weighted means beside the bound, the plain version, the host's
-    time per wrapper call and an empty kernel's device time; ``errs`` holds
-    the kernels phase's max_abs_err, which the comparisons here extend.
-    Returns the kernels' rows and the host and floor figures."""
+def kernel_record(dev, paths: dict, errs: dict) -> tuple[list[dict], dict]:
+    """Time each kernel at the launch sizes of each GC path's run (the
+    ``RECORD_SIZES`` with the most launches) and report launch-weighted
+    means beside the bound, the plain version, the host's time per wrapper
+    call and an empty kernel's device time.  ``paths`` holds each path's
+    counters, the GC main path first: a row carries the main path's
+    launches and means, as the rows of earlier runs do, and ``by_path``
+    each path's own.  ``errs`` holds the kernels phase's max_abs_err,
+    which the comparisons here extend.  Returns the kernels' rows and the
+    host and floor figures."""
     rng = np.random.default_rng(7)
     rows, extra = [], {"empty": _empty_launch(dev, 200), "clocks": _clocks()}
     log(f"  clocks (sm, max sm, temperature, power): {extra['clocks']}")
     spec = {"garble_and": ("garble", 151), "eval_and": ("eval", 175)}
     for name, (kind, line) in spec.items():
-        sizes = counts["launch_sizes"][kind]
-        total = sum(sizes.values())
-        acc = dict.fromkeys(("ms", "host_ms", "plain_ms", "ops_ms",
-                             "bytes_ms"), 0.0)
-        for m, k in sizes.items():
+        timed = {}              # launch size -> its timing, checked once
+
+        def at(m: int) -> dict:
+            if m in timed:
+                return timed[m]
             a, b = _labels(rng, m, dev), _labels(rng, m, dev)
             r = ops.offset(rng.integers(0, 1 << 64, 2, dtype=np.uint64))
             rt = torch.tensor(np.array(r, np.uint64).view(np.int64),
@@ -777,25 +802,51 @@ def kernel_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
             if err:
                 raise AssertionError(f"{name} != plain at m={m}: "
                                      f"max_abs_err {err}")
-            one = _gate_timing(name, a, b, r, tab, 200)
-            for key in acc:
-                acc[key] += k / total * one[key]
-        bound = max(acc["ops_ms"], acc["bytes_ms"])
+            timed[m] = _gate_timing(name, a, b, r, tab, 200)
+            return timed[m]
+
+        by_path = {}
+        for path, counts in paths.items():
+            every = counts["launch_sizes"][kind]
+            # the sizes that carry the most launches (an unbounded job's
+            # batches come in many sizes of a few launches each)
+            sizes = dict(sorted(every.items(), key=lambda kv: -kv[1])
+                         [:RECORD_SIZES])
+            total = sum(sizes.values())
+            acc = dict.fromkeys(("ms", "host_ms", "plain_ms", "ops_ms",
+                                 "bytes_ms"), 0.0)
+            for m, k in sizes.items():
+                one = at(m)
+                for key in acc:
+                    acc[key] += k / total * one[key]
+            bound = max(acc["ops_ms"], acc["bytes_ms"])
+            by_path[path] = {
+                "launches": counts[f"{kind}_launches"], "ms": acc["ms"],
+                "plain_ms": acc["plain_ms"], "bound_ms": bound,
+                "bound_by": "operations" if acc["ops_ms"] >= acc["bytes_ms"]
+                else "bytes", "host_ms": acc["host_ms"],
+                "weighted_share": total / sum(every.values())}
+            log(f"  {name} over the {path} path's {len(sizes)} most launched "
+                f"sizes of {len(every)} ({total / sum(every.values()):.6f} "
+                f"of its {counts[f'{kind}_launches']} launches) "
+                f"{dict(sorted(sizes.items()))}: {acc['ms']:.6f} ms per "
+                f"launch (bound {bound:.3e} ms, plain {acc['plain_ms']:.4f} "
+                f"ms), {acc['host_ms']:.5f} ms per wrapper call (events)")
+        main = next(iter(by_path.values()))
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/garble/csrc/garble.cu",
             "replaces": f"src/repro/kernels/garble/kernel.py:{line}",
-            "launches": counts[f"{kind}_launches"],
+            "launches": main["launches"],
             "max_abs_err": float(errs[name]),
-            "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": bound,
-            "bound_by": "operations" if acc["ops_ms"] >= acc["bytes_ms"]
-            else "bytes",
-            "library_ms": None})
-        extra[name] = {"ms": acc["ms"], "host_ms": acc["host_ms"]}
-        log(f"  {name} over the main path's launch sizes "
-            f"{dict(sorted(sizes.items()))}: {acc['ms']:.6f} ms per launch "
-            f"(bound {bound:.3e} ms, plain {acc['plain_ms']:.4f} ms), "
-            f"{acc['host_ms']:.5f} ms per wrapper call (events)")
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "by_path": {p: {k: v[k] for k in ("launches", "ms", "plain_ms",
+                                              "bound_ms")}
+                        for p, v in by_path.items()}})
+        extra[name] = {"ms": main["ms"], "host_ms": main["host_ms"],
+                       "by_path": by_path}
     log(f"  empty kernel: {extra['empty']['ms']} ms (profiler), "
         f"{extra['empty']['host_ms']:.5f} ms per call (events)")
     _log_gate_code()
@@ -1383,13 +1434,15 @@ def _replaced_sizes(shapes: dict) -> dict:
     return out
 
 
-def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
-    """Each NTT kernel at every launch size of the CKKS main path,
+def ntt_record(dev, paths: dict, errs: dict) -> tuple[list[dict], dict]:
+    """Each NTT kernel at every launch size of each CKKS path's run,
     launch-weighted as kernel_record does (device time from the profiler,
     the host's pace per back-to-back wrapper call from events), and at
     4096 rows, beside the empty kernel's floor, the clocks and a host
-    breakdown of a wrapper call.  A standalone kernel that the main path
-    no longer launches (the inverse) is weighted over the sizes that the
+    breakdown of a wrapper call.  ``paths`` holds each path's counters,
+    the CKKS main path first: a row carries its launches and means, and
+    ``by_path`` each path's own.  A standalone kernel that a path no
+    longer launches (the inverse) is weighted over the sizes that its
     fused launches replace.  The fused kernel is weighted over its launch
     shapes and set beside the three launches it replaces, timed at the
     same sizes."""
@@ -1400,43 +1453,64 @@ def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
     log(f"  clocks (sm, max sm, temperature, power): {big['clocks']}")
     log(f"  empty kernel (the launch floor): {big['empty']['ms']} ms "
         f"(profiler), {big['empty']['host_ms']:.5f} ms per call (events)")
-    replaced = _replaced_sizes(counts["mul_shapes"])
+    timed = {}        # (kind, rows) or the fused shape -> its timing
+
+    def weigh(sizes: dict, one, keys) -> dict:
+        total = sum(sizes.values())
+        acc = dict.fromkeys(keys, 0.0)
+        for r, k in sizes.items():
+            t = one(r)
+            for key in acc:
+                acc[key] += k / total * (t[key] or 0.0)
+        acc["bound_ms"] = max(acc["ops_ms"], acc["bytes_ms"])
+        acc["bound_by"] = "operations" if acc["ops_ms"] >= acc["bytes_ms"] \
+            else "bytes"
+        return acc
+
+    def path_entry(launches: int, acc: dict) -> dict:
+        return {"launches": launches,
+                **{k: acc[k] for k in ("ms", "plain_ms", "bound_ms")}}
+
+    main_path = next(iter(paths))
     for kind in UNFUSED:
         kname, replaces = NTT_KERNELS[kind]
-        own = counts["launch_sizes"][kind]
-        sizes = own or replaced[kind]
-        total = sum(sizes.values())
-        acc = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "ops_ms": 0.0, "bytes_ms": 0.0}
-        for r, k in sizes.items():
-            one = _ntt_timing(kind, r, n, dev, rng, 200)
-            for key in acc:
-                acc[key] += k / total * (one[key] or 0.0)
-        bound = max(acc["ops_ms"], acc["bytes_ms"])
+
+        def one(r, kind=kind):
+            if (kind, r) not in timed:
+                timed[kind, r] = _ntt_timing(kind, r, n, dev, rng, 200)
+            return timed[kind, r]
+        by_path = {}
+        for path, counts in paths.items():
+            own = counts["launch_sizes"][kind]
+            sizes = own or _replaced_sizes(counts["mul_shapes"])[kind]
+            acc = weigh(sizes, one, ("ms", "host_ms", "plain_ms",
+                                     "library_ms", "ops_ms", "bytes_ms"))
+            by_path[path] = (acc, path_entry(counts["launches"][kind], acc))
+            log(f"  {kind} over "
+                + (f"the {path} path's launch sizes" if own else
+                   f"the sizes the {path} path's fused launches replace (it "
+                   f"launches it no more)")
+                + f" {dict(sorted(sizes.items()))}: {acc['ms']:.6f} ms per "
+                f"launch (bound {acc['bound_ms']:.3e} ms, plain "
+                f"{acc['plain_ms']:.4f} ms"
+                + (f", (a * b) % q {acc['library_ms']:.4f} ms"
+                   if kind == "mul_mod" else "") + f"), "
+                f"{acc['host_ms']:.5f} ms per wrapper call (events)")
+        acc = by_path[main_path][0]
         at4k = _ntt_timing(kind, 4096, n, dev, rng, 50)
         big[kind] = at4k
         rows_out.append({
             "name": kind, "route": "cuda",
             "source": "src/repro_torch/kernels/ntt/csrc/ntt.cu",
             "replaces": replaces,
-            "launches": counts["launches"][kind],
+            "launches": paths[main_path]["launches"][kind],
             "max_abs_err": float(errs[kind]),
-            "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": bound,
-            "bound_by": "operations" if acc["ops_ms"] >= acc["bytes_ms"]
-            else "bytes",
-            "library_ms": acc["library_ms"] if kind == "mul_mod" else None})
+            "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+            "bound_ms": acc["bound_ms"], "bound_by": acc["bound_by"],
+            "library_ms": acc["library_ms"] if kind == "mul_mod" else None,
+            "by_path": {p: e for p, (_, e) in by_path.items()}})
         big[f"{kind}_main"] = {k: acc[k] for k in ("ms", "host_ms",
-                                                   "plain_ms")}
-        big[f"{kind}_main"]["bound_ms"] = bound
-        log(f"  {kind} over "
-            + ("the CKKS main path's launch sizes" if own else
-               "the sizes the fused launches replace (the main path "
-               "launches it no more)")
-            + f" {dict(sorted(sizes.items()))}: {acc['ms']:.6f} ms per launch "
-            f"(bound {bound:.3e} ms, plain {acc['plain_ms']:.4f} ms"
-            + (f", (a * b) % q {acc['library_ms']:.4f} ms"
-               if kind == "mul_mod" else "") + f"), {acc['host_ms']:.5f} "
-            f"ms per wrapper call (events)")
+                                                   "plain_ms", "bound_ms")}
         b4k = max(at4k["ops_ms"], at4k["bytes_ms"])
         by = "operations" if at4k["ops_ms"] >= at4k["bytes_ms"] else "bytes"
         log(f"  {kind} at 4096 rows of N=1024: {at4k['ms']:.5f} ms (bound "
@@ -1451,42 +1525,51 @@ def ntt_record(dev, counts: dict, errs: dict) -> tuple[list[dict], dict]:
                 big[f"mul_mod_{r}"] = one["ms"]
             log(f"  mul_mod at 2 / 12 / 24 rows: {big['mul_mod_2']:.6f} / "
                 f"{big['mul_mod_12']:.6f} / {big['mul_mod_24']:.6f} ms")
-    # the fused kernel, over its main-path shapes, against what it replaces
-    shapes = counts["mul_shapes"]
-    total = sum(shapes.values())
-    acc = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "ops_ms": 0.0,
-           "bytes_ms": 0.0, "unfused_ms": 0.0}
-    per_shape = []
-    for key, k in sorted(shapes.items(), key=lambda kv: -kv[1]):
-        one = _mul_timing(key, n, dev, rng, 200)
-        for name in acc:
-            acc[name] += k / total * one[name]
-        per_shape.append([list(key[:2]) + [len(key[2])] + list(key[3:]), k,
-                          one["ms"], one["unfused_ms"], one["unfused"]])
-        log(f"  ntt_mul shape (coef {key[0]}, ntt {key[1]}, outputs "
-            f"{len(key[2])}, groups {key[3]}, primes {key[4]}) x{k}: "
-            f"{one['ms']:.6f} ms against {one['unfused_ms']:.6f} for the "
-            f"three it replaces ({', '.join(f'{u} {v:.6f}' for u, v in one['unfused'].items())})")
-    bound = max(acc["ops_ms"], acc["bytes_ms"])
+
+    # the fused kernel, over each path's shapes, against what it replaces
+    def fused(key):
+        if key not in timed:
+            timed[key] = _mul_timing(key, n, dev, rng, 200)
+            t = timed[key]
+            log(f"  ntt_mul shape (coef {key[0]}, ntt {key[1]}, outputs "
+                f"{len(key[2])}, groups {key[3]}, primes {key[4]}): "
+                f"{t['ms']:.6f} ms against {t['unfused_ms']:.6f} for the "
+                f"three it replaces ({', '.join(f'{u} {v:.6f}' for u, v in t['unfused'].items())})")
+        return timed[key]
+    fused_by_path = {}
+    for path, counts in paths.items():
+        shapes = counts["mul_shapes"]
+        acc = weigh(shapes, fused, ("ms", "host_ms", "plain_ms", "ops_ms",
+                                    "bytes_ms", "unfused_ms"))
+        fused_by_path[path] = (acc, path_entry(counts["launches"]["ntt_mul"],
+                                               acc))
+        log(f"  ntt_mul over the {path} path's launch shapes "
+            f"{[[list(k[:2]) + [len(k[2])] + list(k[3:]), v] for k, v in shapes.items()]}"
+            f": {acc['ms']:.6f} ms per launch against "
+            f"{acc['unfused_ms']:.6f} for the three launches it replaces "
+            f"(bound {acc['bound_ms']:.3e} ms, plain {acc['plain_ms']:.4f} "
+            f"ms), {acc['host_ms']:.5f} ms per wrapper call (events)")
+    acc = fused_by_path[main_path][0]
+    shapes = paths[main_path]["mul_shapes"]
+    per_shape = [[list(key[:2]) + [len(key[2])] + list(key[3:]), k,
+                  timed[key]["ms"], timed[key]["unfused_ms"],
+                  timed[key]["unfused"]]
+                 for key, k in sorted(shapes.items(), key=lambda kv: -kv[1])]
     at4k = _mul_timing((2, 0, ck.ONE_TERM, 4096, 1), n, dev, rng, 50)
     b4k = max(at4k["ops_ms"], at4k["bytes_ms"])
     big["ntt_mul"] = at4k
-    big["ntt_mul_main"] = {**acc, "bound_ms": bound, "shapes": per_shape,
+    big["ntt_mul_main"] = {**acc, "shapes": per_shape,
                            "ratio": acc["ms"] / acc["unfused_ms"]}
     rows_out.append({
         "name": "ntt_mul", "route": "cuda",
         "source": "src/repro_torch/kernels/ntt/csrc/ntt.cu",
         "replaces": NTT_KERNELS["ntt_mul"][1],
-        "launches": counts["launches"]["ntt_mul"],
+        "launches": paths[main_path]["launches"]["ntt_mul"],
         "max_abs_err": float(errs["ntt_mul"]),
-        "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": bound,
-        "bound_by": "operations" if acc["ops_ms"] >= acc["bytes_ms"]
-        else "bytes", "library_ms": None})
-    log(f"  ntt_mul over the CKKS main path's launch shapes: {acc['ms']:.6f}"
-        f" ms per launch against {acc['unfused_ms']:.6f} for the three "
-        f"launches it replaces ({acc['ms'] / acc['unfused_ms']:.3f} of "
-        f"them; bound {bound:.3e} ms, plain {acc['plain_ms']:.4f} ms), "
-        f"{acc['host_ms']:.5f} ms per wrapper call (events)")
+        "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+        "bound_ms": acc["bound_ms"], "bound_by": acc["bound_by"],
+        "library_ms": None,
+        "by_path": {p: e for p, (_, e) in fused_by_path.items()}})
     log(f"  ntt_mul at 4096 output rows of N=1024 (two coefficient rows "
         f"each): {at4k['ms']:.5f} ms (bound {b4k:.4f} ms by "
         f"{'operations' if at4k['ops_ms'] >= at4k['bytes_ms'] else 'bytes'}"
@@ -1854,6 +1937,270 @@ def phase_baselines(dev, main_out: dict, planned: dict) -> dict:
     res["parity"] = _baseline_parity(dev)
     res["profile"] = _baseline_profile(dev)
     return res
+
+
+# ---------------------------------------------------------------------------
+# the GC workloads: sort, ljoin, mvmul, binfclayer, the apps (passreuse and
+# pir) and the plaintext oracle driver
+# ---------------------------------------------------------------------------
+
+#: the jobs' plan: budget 0.4 of the working set, 64 prefetch pages (at
+#: least 8 + 64 frames, the prefetch buffer at most a quarter, as
+#: resolve_plan_config clamps), lookahead 10000
+GC_PLAN = dict(memory_budget=0.4, lookahead=10_000, prefetch_pages=64)
+#: (workload, n, plan): the Fig. 8 sizes (benchmarks/fig8_swap.py:28-30)
+#: and passreuse's (benchmarks/fig1213_apps.py:20), two-party on the
+#: batched loop, cut so that the whole script stays under 1000 s (it took
+#: 1000.4 s at full size): passreuse from 2048 to 1024, sort planned from
+#: 1024 to 512, mvmul from 384 to 192.  binfclayer also unbounded (its ops
+#: batch in neither plan); sort unbounded at its Fig. 8 size (planned there
+#: it would make about 12 million AND calls a kernel) and planned with 8
+#: prefetch pages: 64 ask for 72 frames, above its working set
+GC_JOBS = [("ljoin", 256, GC_PLAN), ("mvmul", 192, GC_PLAN),
+           ("binfclayer", 2048, GC_PLAN),
+           ("binfclayer", 2048, dict(plan_mode="unbounded")),
+           ("sort", 16384, dict(plan_mode="unbounded")),
+           ("sort", 512, dict(GC_PLAN, prefetch_pages=8)),
+           ("passreuse", 1024, GC_PLAN)]
+#: pir at its Fig. 12/13 size, at the CKKS main job's width and plan
+PIR_JOB = dict(workload="pir", n=256, memory_budget=0.4, lookahead=10_000,
+               prefetch_pages=8, ckks_ring=1024, ckks_levels=2)
+#: card against CPU at the port's test sizes (tests/_torch_gc_jobs.py):
+#: (n, frames, prefetch pages)
+GC_PARITY = {"sort": (64, 5, 1), "ljoin": (16, 5, 1), "mvmul": (32, 4, 1),
+             "binfclayer": (128, 4, 1), "passreuse": (64, 5, 1)}
+PIR_PARITY = dict(workload="pir", n=64, memory_budget=4, prefetch_pages=1)
+
+
+def _parity_spec(wl: str) -> dict:
+    n, frames, prefetch = GC_PARITY[wl]
+    return dict(n=n, memory_budget=frames, prefetch_pages=prefetch)
+
+
+def _memory_digest(s) -> str:
+    return hashlib.sha256(s.engines[0].memory.cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def _gc_parity_run(wl: str, device) -> dict:
+    """One workload at its test size, two-party with the table digest and
+    in the clear, on ``device``."""
+    s = Session(JobSpec(wl, **_parity_spec(wl)), device=device)
+    out = s.execute(real=True, check=True, digest=True)
+    p = Session(JobSpec(wl, **_parity_spec(wl)), device=device)
+    plain = p.execute(real=False, check=True)
+    return {"outputs": out, "ands": [g.ands for g in s.gate_counts],
+            "digest": s.table_digest, "plain_outputs": plain,
+            "plain_memory": _memory_digest(p)}
+
+
+def _gc_cpu_parity() -> dict:
+    """The parity jobs with device="cpu", in a process of their own while
+    the card runs the phase's jobs (one thread: the card's host work keeps
+    its cores)."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    res = {wl: _gc_parity_run(wl, "cpu") for wl in GC_PARITY}
+    s = Session(JobSpec(**PIR_PARITY), device="cpu")
+    res["pir"] = {"outputs": s.execute(check=True),
+                  "memory": _memory_digest(s)}
+    # the sort jobs in the clear, what the card's plaintext runs are held to
+    res["plain_sort"] = {
+        _job_key(wl, n, plan): Session(JobSpec(wl, n=n, **plan),
+                                       device="cpu").execute(real=False)
+        for wl, n, plan in GC_JOBS if wl == "sort"}
+    res["cpu_s"] = time.perf_counter() - t0
+    return res
+
+
+def _job_key(wl: str, n: int, plan: dict) -> str:
+    return f"{wl}-{n}-{plan.get('plan_mode', 'memory')}"
+
+
+def _gc_job(wl: str, n: int, plan: dict, dev) -> tuple:
+    s = Session(JobSpec(wl, n=n, **plan), device=dev)
+    t0 = time.perf_counter()
+    out = s.execute(real=True, check=True)
+    return s, out, time.perf_counter() - t0
+
+
+def _gc_workload_jobs(dev) -> tuple[dict, dict, dict]:
+    """The phase's jobs on the card, two-party with the half-gates and NTT
+    counters set to 0 just before the first and read just after the last
+    (pir); every AND gate of both parties through the kernels, pir's
+    transforms and products in the launches its instruction mix gives.
+    Returns each job's metrics and the two counters."""
+    ops.reset_counts()
+    nops.reset_counts()
+    jobs, total = {}, [0, 0]
+    for wl, n, plan in GC_JOBS:
+        s, out, seconds = _gc_job(wl, n, plan, dev)
+        ands = [g.ands for g in s.gate_counts]
+        total = [total[0] + ands[0], total[1] + ands[1]]
+        mode = plan.get("plan_mode", "memory")
+        if mode == "unbounded":
+            _no_swaps(s)
+        st = s.engine_stats
+        t = s.timings["execute_s"]
+        key = _job_key(wl, n, plan)
+        jobs[key] = {
+            "execute_s": t, "ands": ands[0], "ands_per_s": ands[0] / t,
+            "all_s": seconds, "outputs": len(out),
+            "num_frames": s.config.num_frames if s.config else None,
+            "prefetch_pages": s.config.prefetch_pages if s.config else None,
+            "swaps": [st[0].swap_ins, st[0].swap_outs],
+            "frame_bytes": st[0].frame_bytes,
+            "instructions": st[0].instructions,
+            "batches": st[0].batches}
+        j = jobs[key]
+        log(f"gc workloads: {wl} n={n} {mode} ({j['num_frames']} frames, "
+            f"{j['prefetch_pages']} prefetch), two-party, {len(out)} "
+            f"outputs checked against the oracle: execute {t:.3f} s (all "
+            f"{seconds:.3f}), {ands[0]} AND gates per party, "
+            f"{ands[0] / t:.4e} AND gates/s; swaps in/out {j['swaps']} a "
+            f"party; frame bytes {j['frame_bytes']}; {j['instructions']} "
+            f"instructions, {j['batches']} batches")
+    s, out, seconds, ntt = _ckks_checked_run(PIR_JOB, dev)
+    gc = ops.counts()
+    if (gc["garble_ands"], gc["eval_ands"]) != tuple(total) or not total[0]:
+        raise AssertionError(f"ANDs through the kernels {gc} != gate counts "
+                             f"{total}")
+    st = s.engine_stats[0]
+    t = s.timings["execute_s"]
+    he = homomorphic_ops(s.op_counts)
+    jobs[f"pir-{PIR_JOB['n']}-memory"] = {
+        "execute_s": t, "keygen_s": s.timings["keygen_s"], "all_s": seconds,
+        "he_ops": he, "he_ops_per_s": he / t, "outputs": len(out),
+        "num_frames": s.config.num_frames,
+        "swaps": [st.swap_ins, st.swap_outs], "frame_bytes": st.frame_bytes,
+        "instructions": st.instructions, "launches": ntt["launches"]}
+    log(f"gc workloads: pir n={PIR_JOB['n']} at ring 1024, levels 2 "
+        f"({s.config.num_frames} frames), {len(out)} outputs checked "
+        f"against the oracle (atol 2e-2): execute {t:.3f} s (keygen "
+        f"{s.timings['keygen_s']:.3f}), {he} homomorphic ops, "
+        f"{he / t:.1f} per second; swaps {st.swap_ins}/{st.swap_outs}; "
+        f"launches {ntt['launches']}")
+    log(f"  the phase's launches: garble_and {gc['garble_launches']}, "
+        f"eval_and {gc['eval_launches']} (sizes "
+        f"{sorted(gc['launch_sizes']['garble'].items())}); NTT "
+        f"{ntt['launches']}")
+    return jobs, gc, ntt
+
+
+def _sort_ties(n: int, out: dict) -> int:
+    """Check a plaintext sort's outputs against the oracle up to the order
+    of records that share a key; returns the positions that differ.  The
+    plaintext driver's SORT_LOCAL is a stable sort, which can order the
+    records of one key otherwise than the oracle does, as the JAX
+    package's gc-plaintext does (sort n=16384 holds one such pair:
+    tests/test_torch_gc_workloads.py)."""
+    want = get_workload("sort").oracle(n)
+    if sorted(out) != sorted(want):
+        raise AssertionError(f"sort n={n}: plaintext output tags != oracle")
+    got = np.concatenate([out[k] for k in sorted(want)])
+    exp = np.concatenate([want[k] for k in sorted(want)])
+    key = np.uint64((1 << 32) - 1)
+    if not (np.array_equal(got & key, exp & key)
+            and np.array_equal(np.sort(got), np.sort(exp))):
+        raise AssertionError(f"sort n={n}: plaintext outputs != oracle "
+                             f"beyond the order of equal keys")
+    return int((got != exp).sum())
+
+
+def _gc_plaintext_jobs(dev) -> tuple[dict, dict]:
+    """Every GC job of the phase through the plaintext oracle driver on the
+    card; no AND gate is launched.  Each is checked against its oracle,
+    but sort, whose outputs are returned to be held against the same job
+    in the clear on the CPU (see ``_check_plain_sorts``)."""
+    res, sorts = {}, {}
+    ops.reset_counts()
+    for wl, n, plan in GC_JOBS:
+        s = Session(JobSpec(wl, n=n, **plan), device=dev)
+        out = s.execute(real=False)
+        key = _job_key(wl, n, plan)
+        if wl == "sort":
+            sorts[key] = (n, out)
+        else:
+            check_outputs(s.workload, n, out)
+        t = s.timings["execute_s"]
+        res[key] = {"execute_s": t,
+                    "instructions": s.engine_stats[0].instructions}
+        log(f"gc plaintext: {wl} n={n} {plan.get('plan_mode', 'memory')} "
+            f"on the card, {len(out)} outputs"
+            + (" (checked against the CPU's below)" if wl == "sort" else
+               " checked against the oracle")
+            + f": execute {t:.3f} s, {s.engine_stats[0].instructions} "
+            f"instructions")
+    if ops.counts()["garble_launches"]:
+        raise AssertionError("the plaintext driver launched half gates")
+    return res, sorts
+
+
+def _check_plain_sorts(sorts: dict, cpu: dict, res: dict) -> None:
+    """The card's plaintext sorts equal the CPU's bit for bit (the CPU's
+    equal the JAX package's gc-plaintext, tests/test_torch_gc_workloads.py)
+    and the oracle up to the order of records of one key."""
+    for key, (n, out) in sorts.items():
+        if not _same(out, cpu[key]):
+            raise AssertionError(f"plaintext {key}: card and CPU differ")
+        ties = res[key]["tie_positions"] = _sort_ties(n, out)
+        log(f"gc plaintext: {key} on the card == on the CPU, bit for bit; "
+            f"the oracle up to the order of equal keys ({ties} positions "
+            f"differ)")
+
+
+def _gc_card_parity(dev, cpu: dict) -> dict:
+    """The card against the CPU process's runs at the test sizes."""
+    res = {}
+    for wl in GC_PARITY:
+        t0 = time.perf_counter()
+        card, want = _gc_parity_run(wl, dev), cpu[wl]
+        if not (_same(card["outputs"], want["outputs"])
+                and _same(card["plain_outputs"], want["plain_outputs"])):
+            raise AssertionError(f"{wl}: card and CPU outputs differ")
+        if card["ands"] != want["ands"] or card["ands"][0] != card["ands"][1]:
+            raise AssertionError(f"{wl}: AND counts {card['ands']} != "
+                                 f"{want['ands']}")
+        if card["digest"] != want["digest"]:
+            raise AssertionError(f"{wl}: garbled-table streams differ")
+        if card["plain_memory"] != want["plain_memory"]:
+            raise AssertionError(f"{wl}: plaintext engine memory differs")
+        res[wl] = time.perf_counter() - t0
+        log(f"gc parity: {wl} n={GC_PARITY[wl][0]} on the card == on the "
+            f"CPU: {len(card['outputs'])} outputs, {card['ands'][0]} ANDs, "
+            f"table sha256 {card['digest'][:16]}; plaintext outputs and "
+            f"final engine memory (sha256 {card['plain_memory'][:16]})")
+    s = Session(JobSpec(**PIR_PARITY), device=dev)
+    out = s.execute(check=True)
+    if not _same(out, cpu["pir"]["outputs"]) or \
+            _memory_digest(s) != cpu["pir"]["memory"]:
+        raise AssertionError("pir: card and CPU differ")
+    log(f"gc parity: pir n={PIR_PARITY['n']} at ring 128 on the card == on "
+        f"the CPU: {len(out)} outputs and the final engine memory bit for "
+        f"bit")
+    return res
+
+
+def phase_gc_workloads(dev) -> tuple[dict, dict, dict]:
+    """The rest of the GC workloads and the apps on the card, the
+    plaintext driver, and card against CPU at the test sizes (the CPU runs
+    in a process of its own meanwhile).  Returns the metrics and the half
+    gates' and NTT counters of the jobs' run."""
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(1) as pool:
+        cpu_runs = pool.apply_async(_gc_cpu_parity)
+        jobs, gc, ntt = _gc_workload_jobs(dev)
+        plain, sorts = _gc_plaintext_jobs(dev)
+        cpu = cpu_runs.get()
+    log(f"gc parity: the CPU runs took {cpu['cpu_s']:.1f} s (their own "
+        f"process, one thread)")
+    _check_plain_sorts(sorts, cpu["plain_sort"], plain)
+    parity = _gc_card_parity(dev, cpu)
+    return {"jobs": jobs, "plaintext": plain, "parity_card_s": parity,
+            "parity_cpu_s": cpu["cpu_s"],
+            "launches": {"garble_and": gc["garble_launches"],
+                         "eval_and": gc["eval_launches"],
+                         "ntt": ntt["launches"]}}, gc, ntt
 
 
 # ---------------------------------------------------------------------------
@@ -2540,9 +2887,12 @@ def main() -> None:
     # before the baselines existed
     baselines = timed("baselines", phase_baselines, dev, main_out, metrics)
     del main_out
-    rows, gate_launch = timed("record", kernel_record, dev, counts, errs)
-    ntt_rows, ntt_big = timed("ntt record", ntt_record, dev, ntt_counts,
-                              ntt_errs)
+    gc_workloads, gc_counts, pir_counts = timed(
+        "gc workloads", phase_gc_workloads, dev)
+    rows, gate_launch = timed("record", kernel_record, dev, {
+        "gc main": counts, "gc workloads": gc_counts}, errs)
+    ntt_rows, ntt_big = timed("ntt record", ntt_record, dev, {
+        "ckks main": ntt_counts, "gc workloads": pir_counts}, ntt_errs)
     attn_row, attn_timing = timed("attn record", attn_record, dev,
                                   attn_counts, attn_err)
     profiled = timed("profile", phase_profile, dev)
@@ -2559,6 +2909,7 @@ def main() -> None:
         "serve_parity": serve_parity, "attn": attn_timing,
         "serve_stablelm": stablelm,
         "serve_profile": serve_profiled, "baselines": baselines,
+        "gc_workloads": gc_workloads,
         "phases_s": phases,
         "total_s": time.perf_counter() - t_all}))
     print(smi, flush=True)

@@ -2,6 +2,8 @@
 
     python -m repro_torch run --workload merge -n 16384 --budget 0.4 \\
         --prefetch 64 --lookahead 10000 --real --check [--device cpu]
+    python -m repro_torch run --workload ljoin -n 256 --budget 0.4 \\
+        --prefetch 64 --check [--device cpu]
     python -m repro_torch run --workload rmvmul -n 24 --budget 0.4 \\
         --prefetch 8 --ckks-ring 1024 --check [--device cpu]
     python -m repro_torch run --workload merge -n 32 --mode unbounded \\
@@ -12,16 +14,18 @@
 
 ``run`` traces, plans and executes in-process (trace → plan → execute)
 and prints a JSON summary: timings, swap traffic, the engine's frame
-bytes, outputs, and for a garbled-circuit job its AND gates, for a CKKS
-job its instructions, homomorphic ops per second and transforms.  The
+bytes, outputs, and for a garbled-circuit job run with ``--real`` its AND
+gates, for a CKKS job its instructions, homomorphic ops per second and
+transforms.  The
 knobs are the JAX package's: ``--mode`` (memory, or unbounded: the
 traced program over the whole virtual address space, no budget; the
 default is unbounded without ``--budget``), ``--policy``,
 ``--swap-bypass``, ``--exec-backend`` (batched by default, or scalar) and
 ``--storage`` (ram: pinned host pages, or memmap: a swap file).  Garbled
-circuits run only with real two-party crypto (``--real``); CKKS is real
-crypto either way.  The plaintext oracle, the streaming planner, saved
-plans, the overlap backend and the fleet launcher wait for later slices.
+circuits run with real two-party crypto with ``--real``, and otherwise in
+the clear through the plaintext oracle driver; CKKS is real crypto either
+way.  The streaming planner, saved plans, the overlap backend and the
+fleet launcher wait for later slices.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import sys
 
 from .api import JobSpec, Session
 from .protocols.ckks.driver import homomorphic_ops
-from .workloads import get
+from .workloads import all_names
 
 
 def _parse_budget(text: str) -> int | float:
@@ -42,7 +46,7 @@ def _parse_budget(text: str) -> int | float:
     return int(text)
 
 
-def _protocol_summary(s: Session) -> dict:
+def _protocol_summary(s: Session, real: bool) -> dict:
     t = s.timings["execute_s"]
     if s.protocol == "ckks":
         he = homomorphic_ops(s.op_counts)
@@ -54,15 +58,15 @@ def _protocol_summary(s: Session) -> dict:
                 "transforms": {k: s.ckks_counts.get(k, 0)
                                for k in ("ntt_forward", "ntt_inverse")},
                 "mul_mod_rows": s.ckks_counts.get("mul_mod", 0)}
+    if not real:
+        return {"driver": "gc-plaintext",
+                "instructions": s.engine_stats[0].instructions}
     ands = s.gate_counts[0].ands
-    return {"and_gates": ands, "and_gates_per_s": ands / t}
+    return {"driver": "gc-2party", "and_gates": ands,
+            "and_gates_per_s": ands / t}
 
 
 def _run(args: argparse.Namespace) -> int:
-    if get(args.workload).protocol == "gc" and not args.real:
-        print("error: garbled circuits run only with real two-party "
-              "crypto; pass --real", file=sys.stderr)
-        return 2
     mode = args.mode or ("memory" if args.budget is not None
                          else "unbounded")
     try:
@@ -76,7 +80,7 @@ def _run(args: argparse.Namespace) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     s = Session(spec, device=args.device)
-    out = s.execute(real=True, check=args.check)
+    out = s.execute(real=args.real, check=args.check)
     summary = {
         "device": str(s.device),
         "spec": {"workload": s.spec.workload, "n": s.spec.n,
@@ -89,7 +93,7 @@ def _run(args: argparse.Namespace) -> int:
                  "exec_backend": s.spec.exec_backend,
                  "storage": s.spec.storage},
         "timings_s": s.timings,
-        **_protocol_summary(s),
+        **_protocol_summary(s, args.real),
         "swap_ins": [e.swap_ins for e in s.engine_stats],
         "swap_outs": [e.swap_outs for e in s.engine_stats],
         "frame_bytes": [e.frame_bytes for e in s.engine_stats],
@@ -108,7 +112,7 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("run", help="trace, plan and execute a job")
-    r.add_argument("--workload", default="merge")
+    r.add_argument("--workload", default="merge", choices=all_names())
     r.add_argument("-n", type=int, default=None,
                    help="records per party (default: the workload's)")
     r.add_argument("--budget", type=_parse_budget, default=None,
@@ -131,8 +135,8 @@ def main(argv: list[str] | None = None) -> int:
     r.add_argument("--storage", default="ram", choices=("ram", "memmap"),
                    help="swap storage: pinned host pages or a swap file")
     r.add_argument("--real", action="store_true",
-                   help="real two-party garbled circuits (the only GC mode; "
-                   "CKKS needs no flag)")
+                   help="real two-party garbled circuits (default: the "
+                   "plaintext oracle; CKKS needs no flag)")
     r.add_argument("--ckks-ring", type=int, default=None,
                    help="CKKS ring dimension N (default: the workload's)")
     r.add_argument("--ckks-levels", type=int, default=None,

@@ -6,7 +6,9 @@ counterpart of ``repro.api`` for the paths the port runs:
 ``execute`` dispatches on the workload's protocol.  A garbled-circuit job
 runs two parties, one worker each: the garbler and the evaluator are two
 engine threads in this process, on one device, over an in-process channel,
-and their AND gates go through the half-gates kernels.  A CKKS job runs
+and their AND gates go through the half-gates kernels.  With
+``real=False`` it runs one engine with the plaintext oracle driver (the
+JAX package's ``gc-plaintext``) instead.  A CKKS job runs
 one engine whose transforms and products go through the NTT kernels.  The
 device is the card unless the caller passes ``device="cpu"``; without a
 card and without that, the Session raises.
@@ -17,8 +19,8 @@ traced program over the whole virtual address space); ``policy`` (MIN,
 MinClean, LRU, FIFO) and ``swap_bypass``; ``exec_backend`` "batched" (a
 batch schedule, the port's default) or "scalar" (one instruction at a
 time; the reference's default); ``storage`` "ram" (pinned host pages) or
-"memmap" (a swap file).  The streaming planner and the overlap backend
-wait for later slices.
+"memmap" (a swap file).  The streaming planner, the overlap backend and
+multi-worker jobs wait for later slices.
 """
 
 from __future__ import annotations
@@ -38,12 +40,13 @@ from .core.storage import MemmapStorage, PinnedStorage
 from .core.transport import InprocTransport, LinkStats
 from .core.workers import EngineJob, run_engines
 from .exec.batched_ckks import BatchedCkksDriver
-from .exec.batched_gc import BatchedGCDriver
+from .exec.batched_gc import BatchedGCDriver, BatchedPlaintextDriver
 from .exec.batching import build_batch_schedule
 from .kernels import resolve_device
 from .protocols.ckks.driver import CkksDriver
 from .protocols.ckks.params import CkksParams
-from .protocols.garbled.driver import EvaluatorDriver, GarblerDriver
+from .protocols.garbled.driver import (EvaluatorDriver, GarblerDriver,
+                                       PlaintextDriver)
 from .protocols.garbled.gates import GateCounts, PartyChannel
 from .workloads import Workload, get
 from .workloads.ckks_workloads import PARAMS as DEFAULT_CKKS
@@ -134,9 +137,9 @@ def resolve_plan_config(spec: JobSpec, working_set: int) -> PlanConfig:
 
 
 def check_outputs(w: Workload, n: int, outputs: dict[int, np.ndarray],
-                  **extra) -> None:
+                  atol: float = CKKS_ATOL, **extra) -> None:
     """Compare executed outputs with the workload's numpy oracle: exactly
-    for garbled circuits, within ``CKKS_ATOL`` for CKKS (approximate
+    for garbled circuits, within ``atol`` for CKKS (approximate
     arithmetic).  ``extra`` reaches the oracle (``ckks_params``)."""
     exp = w.oracle(n, **extra)
     missing = set(exp) - set(outputs)
@@ -151,7 +154,7 @@ def check_outputs(w: Workload, n: int, outputs: dict[int, np.ndarray],
                                      f"{e[:4]}")
         else:
             err = np.max(np.abs(np.asarray(got) - e))
-            if not err < CKKS_ATOL:
+            if not err < atol:
                 raise AssertionError(f"{w.name} tag {tag}: err {err}")
 
 
@@ -162,16 +165,22 @@ class Session:
     their ``engine_stats`` and (closed) ``storages``, ``timings``
     (``trace_s``, ``plan_s``, ``batch_schedule_s`` on the batched backend,
     ``execute_s``) and the protocol's records.
-    Garbled circuits: ``gate_counts`` (garbler, evaluator),
+    Garbled circuits run for real: ``gate_counts`` (garbler, evaluator),
     ``transport_stats`` of the party link and, with ``digest=True``,
-    ``table_digest`` of the garbled-table stream.  CKKS:
+    ``table_digest`` of the garbled-table stream; in the clear, one
+    engine.  ``workload`` overrides the registry's (the JAX package's
+    runner passes one with other CKKS parameters).  CKKS:
     ``ckks_counts``, the rows of the transforms and modular products the
     job asked for (``ntt_forward``, ``ntt_inverse``, ``mul_mod``; key
     generation included), and ``op_counts``, its instructions by opcode."""
 
-    def __init__(self, spec: JobSpec, device: str | torch.device | None = None):
+    def __init__(self, spec: JobSpec, device: str | torch.device | None = None,
+                 workload: Workload | None = None):
+        if workload is not None and workload.name != spec.workload:
+            raise ValueError(f"workload object {workload.name!r} does not "
+                             f"match spec.workload {spec.workload!r}")
         self.device = resolve_device(device)
-        self.workload = get(spec.workload)
+        self.workload = workload or get(spec.workload)
         self.spec = spec.normalized(self.workload)
         self._progs: list[Program] | None = None
         self._planned: list[Program] | None = None
@@ -192,9 +201,9 @@ class Session:
         return self.workload.protocol
 
     def ckks_params(self) -> CkksParams:
-        """The CKKS workloads' parameters with the spec's ring and levels
+        """The workload's CKKS parameters with the spec's ring and levels
         (the scale and noise parameters stay)."""
-        p = DEFAULT_CKKS
+        p = self.workload.params.get("ckks_params", DEFAULT_CKKS)
         return dataclasses.replace(p, n_ring=self.spec.ckks_ring or p.n_ring,
                                    levels=self.spec.ckks_levels or p.levels)
 
@@ -245,12 +254,13 @@ class Session:
                 digest: bool = False) -> dict[int, np.ndarray]:
         """Run the plan; returns the ``tag -> value`` outputs (checked
         against the oracle with ``check``).  Garbled circuits run with real
-        two-party crypto (``real=False``, the plaintext driver, is not
-        ported); ``digest`` hashes the garbled-table stream, which copies
-        every table to the host.  CKKS is real crypto either way."""
-        if self.protocol == "gc" and not real:
-            raise NotImplementedError("the plaintext driver is not ported "
-                                      "yet; run with real=True")
+        two-party crypto, or in the clear with ``real=False`` (the
+        plaintext oracle driver); ``digest`` hashes the garbled-table
+        stream, which copies every table to the host.  CKKS is real crypto
+        either way."""
+        if digest and not (real and self.protocol == "gc"):
+            raise ValueError("digest=True hashes garbled tables: it needs a "
+                             "garbled-circuit job with real=True")
         planned = self.plan()
         sched = None
         if self.spec.exec_backend == "batched":
@@ -259,8 +269,10 @@ class Session:
             self.timings["batch_schedule_s"] = time.perf_counter() - t0
         if self.protocol == "ckks":
             outputs = self._execute_ckks(planned[0], sched)
-        else:
+        elif real:
             outputs = self._execute_gc(planned[0], sched, digest)
+        else:
+            outputs = self._execute_plaintext(planned[0], sched)
         if check:
             check_outputs(self.workload, self.spec.n, outputs,
                           **self._extra())
@@ -309,6 +321,14 @@ class Session:
         if digest:
             self.table_digest = ch.table_digest()
         return dict(ed.outputs)
+
+    def _execute_plaintext(self, planned: Program, sched
+                           ) -> dict[int, np.ndarray]:
+        """One engine over a one-party transport, in the clear."""
+        drv = PlaintextDriver(self.workload.inputs(self.spec.n, 0, 1))
+        self._run(planned, [drv], BatchedPlaintextDriver, sched,
+                  InprocTransport(1))
+        return dict(drv.outputs)
 
     def _execute_ckks(self, planned: Program, sched
                       ) -> dict[int, np.ndarray]:

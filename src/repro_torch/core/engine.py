@@ -241,7 +241,8 @@ class Engine:
             pass
         elif op in (Op.NET_SEND, Op.NET_RECV, Op.NET_BARRIER):
             raise NotImplementedError(
-                "NET_* directives (multi-worker jobs) are not ported yet")
+                "NET_* directives (multi-worker jobs) are not ported yet "
+                "(ROADMAP Queue 1 item 3)")
         else:
             st.instructions += 1
             self.driver.execute(op, instr.imm,

@@ -49,6 +49,13 @@ def scatter_spans(memory: torch.Tensor, col: SpanCol,
     memory[_index(memory, col)] = vals.reshape(len(col[0]), col[1], -1)
 
 
+def strided_positions(col: SpanCol, n: int, stride: int) -> np.ndarray:
+    """(count, n) slot addresses at ``start + k*stride``: the wire-strided
+    value positions the plaintext driver reads and writes."""
+    starts, _ = col
+    return starts[:, None] + np.arange(n, dtype=np.int64) * stride
+
+
 class BatchedProtocolDriver(ProtocolDriver):
     """Wraps a scalar driver; adds ``execute_batch`` over span columns."""
 

@@ -1,5 +1,5 @@
-from .base import (CKKS_PAGE_SHIFT, GC_PAGE_SHIFT, REGISTRY, Workload, get,
-                   register)
+from .base import (CKKS_PAGE_SHIFT, GC_PAGE_SHIFT, REGISTRY, Workload,
+                   all_names, get, register)
 
-__all__ = ["CKKS_PAGE_SHIFT", "GC_PAGE_SHIFT", "REGISTRY", "Workload", "get",
-           "register"]
+__all__ = ["CKKS_PAGE_SHIFT", "GC_PAGE_SHIFT", "REGISTRY", "Workload",
+           "all_names", "get", "register"]

@@ -7,9 +7,11 @@ wires; CKKS: 128 KiB pages of 8-byte words).  Inputs are materialized
 first, then the computation runs, then outputs are written (§8.1.3), so
 memory pressure is real.
 
-Registered so far: ``merge`` and the five CKKS workloads.  A CKKS
-workload's ``inputs`` and ``oracle`` also take ``ckks_params``, the
-parameters the job runs at.
+Registered: the five garbled-circuit workloads, the five CKKS workloads
+and the two §8.8 applications (passreuse, pir).  A CKKS workload's
+``inputs`` and ``oracle`` also take ``ckks_params``, the parameters the job
+runs at.  Every build runs one worker per party: multi-worker jobs are
+ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -55,10 +57,22 @@ def register(w: Workload) -> Workload:
     return w
 
 
+def single_worker(opts: ProgramOptions) -> None:
+    """Refuse a multi-worker trace, which the port does not run yet."""
+    if opts.num_workers != 1:
+        raise NotImplementedError(
+            "multi-worker jobs are not ported yet (ROADMAP Queue 1 item 3)")
+
+
 def get(name: str) -> Workload:
-    from . import ckks_workloads, gc_workloads  # noqa: F401  (register)
+    from . import apps, ckks_workloads, gc_workloads  # noqa: F401
     try:
         return REGISTRY[name]
     except KeyError:
         raise KeyError(f"workload {name!r} is not ported yet; ported: "
                        f"{sorted(REGISTRY)}") from None
+
+
+def all_names() -> list[str]:
+    get("merge")  # force registration
+    return sorted(REGISTRY)

@@ -23,7 +23,7 @@ import numpy as np
 from ..core.workers import ProgramOptions
 from ..protocols.ckks.driver import Batch, Plain
 from ..protocols.ckks.params import CkksParams
-from .base import CKKS_PAGE_SHIFT, Workload, register
+from .base import CKKS_PAGE_SHIFT, Workload, register, single_worker
 
 X_TAGS = 0
 Y_TAGS = 1 << 20
@@ -57,13 +57,8 @@ def _provider(data_by_base: dict[int, np.ndarray]):
 # ---------------------------------------------------------------------------
 
 
-def _one_worker(opts: ProgramOptions) -> None:
-    if opts.num_workers != 1:
-        raise NotImplementedError("multi-worker CKKS jobs are not ported yet")
-
-
 def _rsum_build(opts: ProgramOptions) -> None:
-    _one_worker(opts)
+    single_worker(opts)
     p = _params(opts)
     n = opts.problem_size
     cts = [Batch(p).mark_input(X_TAGS + i) for i in range(n)]
@@ -93,7 +88,7 @@ register(Workload("rsum", "ckks", _rsum_build, _rsum_inputs, _rsum_oracle,
 
 
 def _rstats_build(opts: ProgramOptions) -> None:
-    _one_worker(opts)
+    single_worker(opts)
     p = _params(opts)
     n = opts.problem_size
     inv_n = Plain(p).mark_input(C_TAGS)          # encodes 1/n
@@ -141,7 +136,7 @@ def _rmv_tag(i: int, j: int, n: int) -> int:
 
 
 def _rmvmul_build(opts: ProgramOptions) -> None:
-    _one_worker(opts)
+    single_worker(opts)
     p = _params(opts)
     n = opts.problem_size
     vec = [Batch(p).mark_input(Y_TAGS + j) for j in range(n)]
@@ -210,7 +205,7 @@ def _matmul_oracle(n: int, ckks_params: CkksParams = PARAMS
 def _n_rmatmul_build(opts: ProgramOptions) -> None:
     """Naive i-j-k loop: the whole A row band, B, and C accumulators are
     repeatedly rescanned — the memory-hostile ordering."""
-    _one_worker(opts)
+    single_worker(opts)
     p = _params(opts)
     n = opts.problem_size
     A = {(i, j): Batch(p).mark_input(X_TAGS + i * n + j)
@@ -231,7 +226,7 @@ def _n_rmatmul_build(opts: ProgramOptions) -> None:
 def _t_rmatmul_build(opts: ProgramOptions) -> None:
     """Tiled i-k-j loop with T x T tiles: each B tile is reused across a
     whole A row-tile before moving on (the memory-friendly ordering)."""
-    _one_worker(opts)
+    single_worker(opts)
     p = _params(opts)
     n = opts.problem_size
     T = min(4, n)

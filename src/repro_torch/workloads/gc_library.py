@@ -1,6 +1,6 @@
-"""Chunked oblivious merging over the Integer DSL: the port's copy of the
-single-worker part of ``repro.workloads.gc_library`` (the §5.1 library
-layer).  Bitonic networks are expressed at chunk granularity: a stage at
+"""Chunked oblivious sorting and merging over the Integer DSL: the port's
+copy of the single-worker part of ``repro.workloads.gc_library`` (the §5.1
+library layer).  Bitonic networks are expressed at chunk granularity: a stage at
 chunk distance jc compare-exchanges chunk g with g ^ jc, and each stage
 ends with a local merge network inside every chunk.
 """
@@ -51,6 +51,25 @@ def _merge_stage(chunks: list[Integer], k: int, key_w: int) -> None:
         up = ((c * C) & k) == 0
         chunks[c] = chunks[c].sort_local(key_w, descending=not up,
                                          merge_only=True)
+
+
+def bitonic_sort_chunks(chunks: list[Integer], opts: ProgramOptions,
+                        key_w: int = KEY_W) -> list[Integer]:
+    """Ascending sort of the chunk sequence (one worker)."""
+    assert opts.num_workers == 1
+    mc = len(chunks)
+    C = chunks[0].count
+    assert mc & (mc - 1) == 0 and C & (C - 1) == 0
+    # local sorts = stages k=2..C of the element-level network: after stage
+    # k=C each C-block is sorted ascending iff bit C of its base index is 0
+    for c in range(mc):
+        up = ((c * C) & C) == 0
+        chunks[c] = chunks[c].sort_local(key_w, descending=not up)
+    k = 2 * C
+    while k <= mc * C:
+        _merge_stage(chunks, k, key_w)
+        k *= 2
+    return chunks
 
 
 def bitonic_merge_sorted_chunks(a: list[Integer], b: list[Integer],

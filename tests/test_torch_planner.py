@@ -17,13 +17,27 @@ from repro_torch.interop import program_from_records
 
 #: (n, budget, prefetch, lookahead): a working-set fraction and a frame count
 CASES = [(256, 0.4, 8, 10_000), (512, 12, 2, 40)]
+#: the other workloads at the paper's sizes (Fig. 8; passreuse and pir
+#: Fig. 12/13; sort at n = 1024, whose plan at Fig. 8's 16384 the chip does
+#: not run) at a working-set fraction, and at their test sizes, as
+#: (workload, n, budget, prefetch, lookahead)
+WORKLOAD_CASES = [
+    ("ljoin", 256, 0.4, 64, 10_000), ("mvmul", 384, 0.4, 64, 10_000),
+    ("binfclayer", 2048, 0.4, 64, 10_000), ("sort", 1024, 0.4, 64, 10_000),
+    ("passreuse", 2048, 0.4, 64, 10_000), ("pir", 256, 0.4, 8, 10_000),
+    ("ljoin", 16, 5, 1, 10_000), ("mvmul", 32, 4, 1, 10_000),
+    ("binfclayer", 128, 4, 1, 10_000), ("sort", 64, 5, 1, 10_000),
+    ("passreuse", 64, 5, 1, 10_000), ("pir", 64, 4, 1, 10_000)]
+ALL_CASES = [pytest.param("merge", *c, id="-".join(map(str, c)))
+             for c in CASES] + [pytest.param(*c, id="-".join(map(str, c)))
+                                for c in WORKLOAD_CASES]
 
 
-def _sessions(n, budget, prefetch, lookahead):
-    ref = RefSession(RefJobSpec(workload="merge", n=n, memory_budget=budget,
+def _sessions(n, budget, prefetch, lookahead, wl="merge"):
+    ref = RefSession(RefJobSpec(workload=wl, n=n, memory_budget=budget,
                                 lookahead=lookahead, prefetch_pages=prefetch,
                                 plan_core="scalar"))
-    port = Session(JobSpec("merge", n=n, memory_budget=budget,
+    port = Session(JobSpec(wl, n=n, memory_budget=budget,
                            lookahead=lookahead, prefetch_pages=prefetch),
                    device="cpu")
     return ref, port
@@ -35,9 +49,10 @@ def _header(p) -> dict:
                                         "meta")}
 
 
-@pytest.mark.parametrize("n,budget,prefetch,lookahead", CASES)
-def test_trace_plan_schedule_match_reference(n, budget, prefetch, lookahead):
-    ref, port = _sessions(n, budget, prefetch, lookahead)
+@pytest.mark.parametrize("wl,n,budget,prefetch,lookahead", ALL_CASES)
+def test_trace_plan_schedule_match_reference(wl, n, budget, prefetch,
+                                             lookahead):
+    ref, port = _sessions(n, budget, prefetch, lookahead, wl)
     rv, pv = ref.trace()[0], port.trace()[0]
     assert np.array_equal(encode_chunk(pv.instrs), ref_encode(rv.instrs))
     assert pv.vspace_slots == rv.vspace_slots
@@ -56,7 +71,8 @@ def test_trace_plan_schedule_match_reference(n, budget, prefetch, lookahead):
         dataclasses.asdict(rrep.replacement)
     assert dataclasses.asdict(prep.schedule) == \
         dataclasses.asdict(rrep.schedule)
-    assert prep.replacement.swap_ins > 0
+    if wl == "merge":
+        assert prep.replacement.swap_ins > 0
 
     rs, ps = ref_batch_schedule(rm), build_batch_schedule(pm)
     assert (ps.chunk_instrs, ps.n_records) == (rs.chunk_instrs, rs.n_records)
