@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 It drives the port's three paths: the planned two-party garbled merge
-(GC) and the other GC workloads and apps, the planned CKKS jobs and
-serving qwen2-1.5b (and, briefly, stablelm-3b) with the paged decode.
+(GC) and the other GC workloads and apps, the planned CKKS jobs (and
+both kinds of job at four workers a party) and serving qwen2-1.5b (and,
+briefly, stablelm-3b) with the paged decode.
 TF32 stays off for the whole run: the plain versions' float32 products run
 in full float32.  Phases, each raising on failure:
 
@@ -33,7 +34,8 @@ in full float32.  Phases, each raising on failure:
                  operands refused;
 5. parity        a small planned two-party merge on the card equals the
                  same job run with device="cpu" (outputs, AND count, table
-                 digest), and a sync-swap job;
+                 digest; the CPU run in a process of its own, started
+                 before the build), and a sync-swap job;
 6. ckks parity   rmvmul n=4 and rstats n=8 at rings 128 and 1024 on the
                  card equal their device="cpu" runs: decoded outputs and
                  the final engine memory, bit for bit;
@@ -68,7 +70,7 @@ in full float32.  Phases, each raising on failure:
 10. gc workloads (after the baselines) the rest of the GC workloads and
                  the apps, two-party on the batched loop, each checked
                  against its oracle: ljoin n=256, mvmul n=192 and
-                 binfclayer n=2048 at budget 0.4 with 64 prefetch pages
+                 binfclayer n=1024 at budget 0.4 with 64 prefetch pages
                  (binfclayer also unbounded), sort n=16384 unbounded and
                  n=512 planned (8 prefetch pages), passreuse n=1024, pir
                  n=256 at ring 1024; every AND gate through the half-gates
@@ -80,16 +82,30 @@ in full float32.  Phases, each raising on failure:
                  table digest; the plaintext driver's outputs and final
                  engine memory; pir's outputs and memory), the CPU runs in
                  a process of their own meanwhile;
-11. record       each kernel timed at each path's launch sizes, beside
+11. workers      multi-worker jobs and the overlap backend at Fig. 10's
+                 four workers a party, each checked against its oracle
+                 beside the one-worker job of the same n: two-party merge
+                 n=16384 unbounded on the batched and the overlap loop,
+                 n=2048 planned at 0.4 with 16 prefetch pages (batched)
+                 and unbounded; rsum n=256 and rmvmul n=24 at ring 1024
+                 planned (lookahead 100, 16 prefetch pages) and unbounded
+                 on both loops; NET messages and bytes per worker link,
+                 posted and in-flight receives, swaps; every AND gate and
+                 every transform and product through the kernels; card
+                 against CPU for two-party merge n=64 at two workers (the
+                 table stream of each party link) and rsum n=32 at four
+                 (every engine's final memory) on both loops, the CPU
+                 runs in a process of their own meanwhile;
+12. record       each kernel timed at each path's launch sizes, beside
                  its bound, its plain version and (the product) the
                  PyTorch expression, with the host's time per wrapper call
                  and the empty kernel; the NTT kernels also at 4096 rows,
                  with a host breakdown of a wrapper call; the fused kernel
                  over its launch shapes, beside the three standalone
                  launches each one replaces, timed at the same sizes;
-12. profile      the GC path's shape at n=512 and the CKKS main job under
+13. profile      the GC path's shape at n=512 and the CKKS main job under
                  torch.profiler: device time by op, and the busy share;
-13. attn kernels the paged-attention kernels (split and combine) against
+14. attn kernels the paged-attention kernels (split and combine) against
                  their plain version on the card (rtol 1e-4, atol 1e-5),
                  f32 and bf16 pages: the JAX package's test shapes, qwen2's
                  head shape at batch 1 and 8 (ragged lengths, permuted
@@ -98,26 +114,26 @@ in full float32.  Phases, each raising on failure:
                  over host tables and over tables prepared with 2-page
                  chunks, stablelm-3b's heads (head_dim 80) and a group of
                  16;
-14. serve parity reduced qwen2 in f32 with nonzero biases served on the
+15. serve parity reduced qwen2 in f32 with nonzero biases served on the
                  card equals the same run with device="cpu": greedy tokens,
                  and teacher-forced logits within relative 1e-4, for the
                  paged and the contiguous decode;
-15. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
+16. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
                  run_server with the paged decode: 4 requests of 200-token
                  prompts, 64 new tokens each, every decode attention through
                  the kernels (252 steps x 28 layers wrapper calls, the
                  tables prepared once a step), held against the contiguous
                  decode teacher-forced on its tokens;
-16. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
+17. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
                  64 prompt tokens and 8 new ones, paged (7 steps x 32
                  layers wrapper calls) against its contiguous decode;
-17. attn record  a wrapper call timed at the main path's lengths and at the
+18. attn record  a wrapper call timed at the main path's lengths and at the
                  32768-token batch: device time summed over the kernels it
                  launches (split and combine also apart, profiler), the
                  host's time per call over prepared and over host tables
                  (events), beside the bound, the plain version and gather +
                  scaled_dot_product_attention;
-18. serve profile a few decode steps of the serve main job under
+19. serve profile a few decode steps of the serve main job under
                  torch.profiler: device time by op and the busy share.
 
 The last four lines are a JSON summary of the run's headline numbers, the
@@ -160,6 +176,7 @@ from repro_torch.launch.serve import paged_cache, run_server  # noqa: E402
 from repro_torch.models import init_lm, lm_decode, lm_prefill  # noqa: E402
 from repro_torch.core.bytecode import Op  # noqa: E402
 from repro_torch.core.engine import SWAP_DIRECTIVES  # noqa: E402
+from repro_torch.core.transport import aggregate_links  # noqa: E402
 from repro_torch.protocols.ckks import cipher as ck  # noqa: E402
 from repro_torch.protocols.ckks.driver import homomorphic_ops  # noqa: E402
 from repro_torch.protocols.ckks.params import CkksParams  # noqa: E402
@@ -670,19 +687,27 @@ def _swaps(s) -> tuple[int, int, int, int]:
             sum(e.io_write_bytes for e in st))
 
 
-def phase_parity(dev) -> dict:
+def parity_cpu() -> dict:
+    """The parity job with device="cpu": what the card's run is held to.
+    ``main`` runs it in a process of its own (one thread) while the card
+    builds and checks the kernels."""
+    torch.set_num_threads(1)
+    s, out, t = _run(PARITY, "cpu", digest=True)
+    return {"outputs": out, "ands": [g.ands for g in s.gate_counts],
+            "digest": s.table_digest, "s": t}
+
+
+def phase_parity(dev, cpu: dict) -> dict:
     gpu, out_g, t_g = _run(PARITY, dev, digest=True)
-    cpu, out_c, t_c = _run(PARITY, "cpu", digest=True)
+    t_c = cpu["s"]
     if _swaps(gpu)[0] == 0:
         raise AssertionError("parity job did not swap")
-    if sorted(out_g) != sorted(out_c) or \
-            not all(np.array_equal(out_g[k], out_c[k]) for k in out_g):
+    if not _same(out_g, cpu["outputs"]):
         raise AssertionError("card and CPU outputs differ")
     ands = [g.ands for g in gpu.gate_counts]
-    if ands != [g.ands for g in cpu.gate_counts] or ands[0] != ands[1]:
-        raise AssertionError(f"AND counts differ: {ands} vs "
-                             f"{[g.ands for g in cpu.gate_counts]}")
-    if gpu.table_digest != cpu.table_digest:
+    if ands != cpu["ands"] or ands[0] != ands[1]:
+        raise AssertionError(f"AND counts differ: {ands} vs {cpu['ands']}")
+    if gpu.table_digest != cpu["digest"]:
         raise AssertionError("garbled-table streams differ")
     log(f"parity: merge n={PARITY['n']} on the card ({t_g:.2f} s) == on the "
         f"CPU ({t_c:.2f} s): {len(out_g)} outputs, {ands[0]} ANDs, table "
@@ -1202,9 +1227,10 @@ def phase_ckks_parity(dev) -> dict:
 
 
 def expected_ntt_launches(s, levels: int) -> dict:
-    """The NTT launches a CKKS job makes, from its instruction mix: key
-    generation's 1 + levels forward transforms and products (s and s^2,
-    then each level's key); one fused launch for each encryption (an INPUT
+    """The NTT launches a CKKS job makes, from each worker's instruction
+    mix, summed: each worker's key generation's 1 + levels forward
+    transforms and products (s and s^2, then each level's key); one fused
+    launch for each encryption (an INPUT
     that is not a plaintext), decryption (OUTPUT), relinearization
     (CT_RELIN, and CT_MUL's second), mul_plain (CT_MUL_PLAIN) and tensor
     product (CT_MUL, and each CT_MUL_NR call: a batched group of two or
@@ -1215,21 +1241,25 @@ def expected_ntt_launches(s, levels: int) -> dict:
     if levels > 4:
         raise ValueError(f"levels {levels}: relinearize's launches depend "
                          f"on each instruction's level")
-    ops_ = [ins.op for ins in s.plan()[0].instrs]
-    n_in = sum(1 for ins in s.plan()[0].instrs
-               if ins.op == Op.INPUT and ins.imm[1] != 1)
-    sched = s.engines[0].batch_schedule
-    mul_nr = ops_.count(Op.CT_MUL_NR)
-    if sched is not None:       # the scalar loop makes a call each
-        sizes = np.diff(sched.bounds)
-        batched = sizes[(sched.group_op == int(Op.CT_MUL_NR)) &
-                        (sizes >= 2)]
-        mul_nr -= int((batched - 1).sum())
-    fused = (n_in + ops_.count(Op.OUTPUT) + ops_.count(Op.CT_RELIN) +
-             2 * ops_.count(Op.CT_MUL) + ops_.count(Op.CT_MUL_PLAIN) +
-             mul_nr)
-    return {"ntt_forward": 1 + levels, "ntt_inverse": 0,
-            "mul_mod": 1 + levels, "ntt_mul": fused}
+    fused = 0
+    for prog, eng in zip(s.plan(), s.engines):   # every worker's engine
+        ops_ = [ins.op for ins in prog.instrs]
+        n_in = sum(1 for ins in prog.instrs
+                   if ins.op == Op.INPUT and ins.imm[1] != 1)
+        mul_nr = ops_.count(Op.CT_MUL_NR)
+        sched = eng.overlap_schedule or eng.batch_schedule
+        if sched is not None:       # the scalar loop makes a call each
+            sizes = np.diff(sched.bounds)
+            local = getattr(sched, "group_kind", np.zeros_like(sizes)) == 0
+            batched = sizes[local & (sched.group_op == int(Op.CT_MUL_NR)) &
+                            (sizes >= 2)]
+            mul_nr -= int((batched - 1).sum())
+        fused += (n_in + ops_.count(Op.OUTPUT) + ops_.count(Op.CT_RELIN) +
+                  2 * ops_.count(Op.CT_MUL) + ops_.count(Op.CT_MUL_PLAIN) +
+                  mul_nr)
+    keys = len(s.engines) * (1 + levels)   # each worker's key generation
+    return {"ntt_forward": keys, "ntt_inverse": 0, "mul_mod": keys,
+            "ntt_mul": fused}
 
 
 def _ckks_checked_run(spec: dict, dev) -> tuple:
@@ -1661,12 +1691,14 @@ def _gc_checked_run(job: dict, dev) -> tuple:
 
 
 def _no_swaps(s) -> None:
-    """An unbounded run: no swap directive in the program or the engine."""
-    if s.plan()[0].phase != "virtual" or any(
-            ins.op in SWAP_DIRECTIVES for ins in s.plan()[0].instrs):
+    """An unbounded run: no swap directive in any worker's program or
+    engine (its only directives are NET_* ones)."""
+    if any(p.phase != "virtual" or any(ins.op in SWAP_DIRECTIVES
+                                       for ins in p.instrs)
+           for p in s.plan()):
         raise AssertionError("the unbounded program holds swap directives")
-    if any(e.directives or e.swap_ins or e.swap_outs or e.io_read_bytes
-           for e in s.engine_stats):
+    if any(e.directives != e.net_messages or e.swap_ins or e.swap_outs
+           or e.io_read_bytes for e in s.engine_stats):
         raise AssertionError("the unbounded run swapped")
 
 
@@ -1952,13 +1984,14 @@ GC_PLAN = dict(memory_budget=0.4, lookahead=10_000, prefetch_pages=64)
 #: and passreuse's (benchmarks/fig1213_apps.py:20), two-party on the
 #: batched loop, cut so that the whole script stays under 1000 s (it took
 #: 1000.4 s at full size): passreuse from 2048 to 1024, sort planned from
-#: 1024 to 512, mvmul from 384 to 192.  binfclayer also unbounded (its ops
+#: 1024 to 512, mvmul from 384 to 192; and, to make room for the workers
+#: phase, binfclayer from 2048 to 1024, planned and unbounded (its ops
 #: batch in neither plan); sort unbounded at its Fig. 8 size (planned there
 #: it would make about 12 million AND calls a kernel) and planned with 8
 #: prefetch pages: 64 ask for 72 frames, above its working set
 GC_JOBS = [("ljoin", 256, GC_PLAN), ("mvmul", 192, GC_PLAN),
-           ("binfclayer", 2048, GC_PLAN),
-           ("binfclayer", 2048, dict(plan_mode="unbounded")),
+           ("binfclayer", 1024, GC_PLAN),
+           ("binfclayer", 1024, dict(plan_mode="unbounded")),
            ("sort", 16384, dict(plan_mode="unbounded")),
            ("sort", 512, dict(GC_PLAN, prefetch_pages=8)),
            ("passreuse", 1024, GC_PLAN)]
@@ -2198,6 +2231,240 @@ def phase_gc_workloads(dev) -> tuple[dict, dict, dict]:
     parity = _gc_card_parity(dev, cpu)
     return {"jobs": jobs, "plaintext": plain, "parity_card_s": parity,
             "parity_cpu_s": cpu["cpu_s"],
+            "launches": {"garble_and": gc["garble_launches"],
+                         "eval_and": gc["eval_launches"],
+                         "ntt": ntt["launches"]}}, gc, ntt
+
+
+# ---------------------------------------------------------------------------
+# multi-worker jobs and the overlap backend (Fig. 10): four workers a party
+# ---------------------------------------------------------------------------
+
+#: Fig. 10's workers a party and plans (benchmarks/fig10_parallel.py:27-32,
+#: src/repro/scenarios.py:45-49): a budget of 0.4 of every worker's own
+#: working set, GC with lookahead 10000 and 16 prefetch pages, CKKS at ring
+#: 1024, levels 2, lookahead 100 and 16 prefetch pages (each clamped to a
+#: quarter of the budget, as resolve_plan_config does)
+WORKERS = 4
+W_GC_PLAN = dict(memory_budget=0.4, lookahead=10_000, prefetch_pages=16)
+W_CKKS_PLAN = dict(memory_budget=0.4, lookahead=100, prefetch_pages=16,
+                   ckks_ring=1024, ckks_levels=2)
+W_CKKS_UNBOUNDED = dict(plan_mode="unbounded", ckks_ring=1024, ckks_levels=2)
+UNBOUNDED = dict(plan_mode="unbounded")
+W_LOOPS = ("batched", "overlap")
+#: (workload, n, plan, workers, loops): every job checked against its
+#: oracle, each p = 4 job beside the p = 1 job of the same n and plan.
+#: merge at Fig. 10's n = 16384 unbounded; planned it is cut to Fig. 10's
+#: tiny n = 2048 (benchmarks/fig10_parallel.py:29) on the batched loop
+#: only (its overlap run is the parity job's): NET directives and swap
+#: directives are barriers to exec.batching, so the planned program
+#: batches almost nothing and runs at the host's pace per AND call (the
+#: phase took 341 s with it at n = 4096 on both loops); sort n = 8192 and
+#: mvmul n = 384 are cut for time
+WORKER_JOBS = [
+    ("merge", 16384, UNBOUNDED, WORKERS, W_LOOPS),
+    ("merge", 16384, UNBOUNDED, 1, ("batched",)),
+    ("merge", 2048, W_GC_PLAN, WORKERS, ("batched",)),
+    ("merge", 2048, UNBOUNDED, WORKERS, ("batched",)),
+    ("merge", 2048, W_GC_PLAN, 1, ("batched",)),
+    ("merge", 2048, UNBOUNDED, 1, ("batched",))] + [
+    (wl, n, plan, p, W_LOOPS if p > 1 else ("batched",))
+    for wl, n in (("rsum", 256), ("rmvmul", 24))
+    for plan in (W_CKKS_PLAN, W_CKKS_UNBOUNDED) for p in (WORKERS, 1)]
+#: card against CPU: two-party merge n=64 at p = 2 (outputs, AND counts,
+#: the table digest of each party link) and rsum n=32 at p = 4, ring 128
+#: (outputs and every engine's final memory), on both loops
+W_PARITY_GC = dict(workload="merge", n=64, num_workers=2, memory_budget=5,
+                   prefetch_pages=1)
+W_PARITY_CKKS = dict(workload="rsum", n=32, num_workers=4, memory_budget=3,
+                     prefetch_pages=1)
+
+
+def _worker_key(wl: str, n: int, plan: dict, p: int, loop: str) -> str:
+    return f"{wl}-{n}-{plan.get('plan_mode', 'memory')}-p{p}-{loop}"
+
+
+def _net_links(s) -> dict:
+    """NET traffic per worker link (src -> dst rank within a party): the
+    transport's messages and bytes, party links left out."""
+    p = s.spec.num_workers
+    return {f"{src}->{dst}": [t.messages, t.bytes] for (src, dst), t in
+            sorted(aggregate_links(s.transport_stats).items())
+            if src // p == dst // p}
+
+
+def _worker_job(wl: str, n: int, plan: dict, p: int, loop: str, dev
+                ) -> dict:
+    """One job on the card, checked against its oracle: two-party for GC,
+    every AND gate of both parties through the half-gates kernels (the
+    counters are the phase's, so this checks the job's share); a CKKS
+    job's transforms and products in the launches its instruction mix
+    gives."""
+    spec = dict(workload=wl, n=n, num_workers=p, exec_backend=loop, **plan)
+    before = ops.counts()
+    nbefore = nops.counts()["launches"]
+    s = Session(JobSpec(**spec), device=dev)
+    t0 = time.perf_counter()
+    out = s.execute(check=True)
+    seconds = time.perf_counter() - t0
+    st = s.engine_stats
+    t = s.timings["execute_s"]
+    if plan.get("plan_mode") == "unbounded":
+        _no_swaps(s)
+    res = {"execute_s": t, "all_s": seconds, "outputs": len(out),
+           "num_frames": [c.num_frames for c in s.configs] or None,
+           "prefetch_pages": [c.prefetch_pages for c in s.configs] or None,
+           "swaps": [[e.swap_ins, e.swap_outs] for e in st],
+           "frame_bytes": [e.frame_bytes for e in st],
+           "instructions": [e.instructions for e in st],
+           "batched": [e.batched_instructions for e in st],
+           "batches": [e.batches for e in st],
+           "net_messages": [e.net_messages for e in st],
+           "net_bytes": [[e.net_sent_bytes, e.net_recv_bytes] for e in st],
+           "posted_recvs": [e.posted_recvs for e in st],
+           "max_inflight_recvs": [e.max_inflight_recvs for e in st],
+           "net_links": _net_links(s)}
+    if s.protocol == "gc":
+        c = ops.counts()
+        ands = [g.ands for g in s.gate_counts]
+        got = [c["garble_ands"] - before["garble_ands"],
+               c["eval_ands"] - before["eval_ands"]]
+        if got != ands or not ands[0]:
+            raise AssertionError(f"{wl}: ANDs through the kernels {got} != "
+                                 f"gate counts {ands}")
+        res.update(ands=ands[0], ands_per_s=ands[0] / t,
+                   garble_launches=c["garble_launches"]
+                   - before["garble_launches"])
+        rate = f"{ands[0]} AND gates a party, {ands[0] / t:.4e} AND gates/s"
+    else:
+        launches = {k: v - nbefore[k]
+                    for k, v in nops.counts()["launches"].items()}
+        want = expected_ntt_launches(s, plan["ckks_levels"])
+        if launches != want or not want["ntt_mul"]:
+            raise AssertionError(f"{wl}: NTT launches {launches} != {want}, "
+                                 f"what the instruction mix gives")
+        he = homomorphic_ops(s.op_counts)
+        res.update(keygen_s=s.timings["keygen_s"], he_ops=he,
+                   he_ops_per_s=he / t, ntt_launches=launches)
+        rate = f"{he} homomorphic ops, {he / t:.1f} per second"
+    log(f"workers: {wl} n={n} {plan.get('plan_mode', 'memory')} p={p} "
+        f"{loop} (frames {res['num_frames']}, prefetch "
+        f"{res['prefetch_pages']}), {len(out)} outputs checked against the "
+        f"oracle: execute {t:.3f} s (all {seconds:.3f}), {rate}; "
+        f"instructions {res['instructions']}, batched {res['batched']} in "
+        f"{res['batches']} batches; NET messages {res['net_messages']}, "
+        f"bytes sent/received {res['net_bytes']}, posted receives "
+        f"{res['posted_recvs']} (at most {res['max_inflight_recvs']} in "
+        f"flight); links {res['net_links']}; swaps {res['swaps']}; frame "
+        f"bytes {res['frame_bytes']}")
+    return res
+
+
+def _worker_ratios(jobs: dict) -> dict:
+    """planned / unbounded execute s where both ran, per (workload, n,
+    workers, loop), and p = 4 / p = 1 for each (workload, n, plan)."""
+    out = {}
+    for key, j in jobs.items():
+        wl, n, mode, p, loop = key.split("-")
+        if mode == "memory":
+            unb = jobs.get("-".join((wl, n, "unbounded", p, loop)))
+            if unb:
+                out[f"{wl}-{n}-{p}-{loop} planned/unbounded"] = \
+                    j["execute_s"] / unb["execute_s"]
+        if p != "p1":
+            one = jobs.get("-".join((wl, n, mode, "p1", "batched")))
+            if one:
+                out[f"{wl}-{n}-{mode}-{loop} {p}/p1"] = \
+                    j["execute_s"] / one["execute_s"]
+    for k, v in out.items():
+        log(f"workers: {k} = {v:.4f}")
+    return out
+
+
+def _worker_parity_runs(device) -> dict:
+    """The parity jobs on ``device``: merge two-party with the table
+    digest of each party link, rsum with every engine's final memory."""
+    res = {}
+    for loop in W_LOOPS:
+        s = Session(JobSpec(exec_backend=loop, **W_PARITY_GC), device=device)
+        out = s.execute(real=True, check=True, digest=True)
+        res[f"merge-{loop}"] = {
+            "outputs": out, "ands": [g.ands for g in s.gate_counts],
+            "digests": {f"{a}->{b}": d
+                        for (a, b), d in s.table_digests.items()}}
+        c = Session(JobSpec(exec_backend=loop, **W_PARITY_CKKS),
+                    device=device)
+        res[f"rsum-{loop}"] = {
+            "outputs": c.execute(check=True),
+            "memory": [hashlib.sha256(e.memory.cpu().numpy().tobytes())
+                       .hexdigest() for e in c.engines]}
+    return res
+
+
+def _workers_cpu_parity() -> dict:
+    """The parity jobs with device="cpu", in a process of their own while
+    the card runs the phase's jobs (one thread)."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    res = _worker_parity_runs("cpu")
+    res["cpu_s"] = time.perf_counter() - t0
+    return res
+
+
+def _workers_card_parity(dev, cpu: dict) -> None:
+    """The card's parity runs against the CPU process's."""
+    for key, got in _worker_parity_runs(dev).items():
+        want = cpu[key]
+        if not _same(got["outputs"], want["outputs"]):
+            raise AssertionError(f"workers {key}: card and CPU outputs "
+                                 f"differ")
+        if key.startswith("merge"):
+            if got["ands"] != want["ands"] or \
+                    got["digests"] != want["digests"]:
+                raise AssertionError(f"workers {key}: AND counts or party "
+                                     f"links' table streams differ")
+            short = {k: d[:16] for k, d in got["digests"].items()}
+            log(f"workers parity: two-party merge n=64 p=2 {key[6:]} on "
+                f"the card == on the CPU: {len(got['outputs'])} outputs, "
+                f"{got['ands'][0]} ANDs, table sha256 per party link "
+                f"{short}")
+        else:
+            if got["memory"] != want["memory"]:
+                raise AssertionError(f"workers {key}: engine memory "
+                                     f"differs")
+            log(f"workers parity: rsum n=32 p=4 at ring 128 {key[5:]} on "
+                f"the card == on the CPU: outputs and the 4 engines' final "
+                f"memory bit for bit")
+
+
+def phase_workers(dev) -> tuple[dict, dict, dict]:
+    """Multi-worker jobs and the overlap backend on the card (four
+    workers a party, NET_* directives over the worker links, a party
+    link a worker pair), and card against CPU at the parity sizes (the
+    CPU runs in a process of their own meanwhile).  Returns the metrics
+    and the half gates' and NTT counters of the jobs' run, set to 0 just
+    before the first job and read just after the last."""
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(1) as pool:
+        cpu_runs = pool.apply_async(_workers_cpu_parity)
+        ops.reset_counts()
+        nops.reset_counts()
+        jobs = {}
+        for wl, n, plan, p, loops in WORKER_JOBS:
+            for loop in loops:
+                jobs[_worker_key(wl, n, plan, p, loop)] = _worker_job(
+                    wl, n, plan, p, loop, dev)
+        gc, ntt = ops.counts(), nops.counts()
+        cpu = cpu_runs.get()
+    if any(ntt["plain_calls"].values()):
+        raise AssertionError(f"plain NTT versions ran: {ntt['plain_calls']}")
+    log(f"workers: the phase's launches: garble_and "
+        f"{gc['garble_launches']}, eval_and {gc['eval_launches']}; NTT "
+        f"{ntt['launches']}; the CPU's parity runs took {cpu['cpu_s']:.1f} s "
+        f"(their own process, one thread)")
+    ratios = _worker_ratios(jobs)
+    _workers_card_parity(dev, cpu)
+    return {"jobs": jobs, "ratios": ratios, "parity_cpu_s": cpu["cpu_s"],
             "launches": {"garble_and": gc["garble_launches"],
                          "eval_and": gc["eval_launches"],
                          "ntt": ntt["launches"]}}, gc, ntt
@@ -2870,12 +3137,16 @@ def main() -> None:
         log(f"[{name}: {phases[name]:.2f} s]")
         return out
 
-    smi = timed("device", phase_device)
-    built = timed("build", phase_build)
-    errs, big, gate_timing = timed("kernels", phase_kernels, dev)
-    ntt_errs = timed("ntt kernels", phase_ntt_kernels, dev)
-    attn_err = timed("attn kernels", phase_attn_kernels, dev)
-    parity = timed("parity", phase_parity, dev)
+    # the parity job's CPU run, in a process of its own meanwhile
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        cpu_parity = pool.apply_async(parity_cpu)
+        smi = timed("device", phase_device)
+        built = timed("build", phase_build)
+        errs, big, gate_timing = timed("kernels", phase_kernels, dev)
+        ntt_errs = timed("ntt kernels", phase_ntt_kernels, dev)
+        attn_err = timed("attn kernels", phase_attn_kernels, dev)
+        cpu_parity = cpu_parity.get()
+    parity = timed("parity", phase_parity, dev, cpu_parity)
     ckks_parity = timed("ckks parity", phase_ckks_parity, dev)
     serve_parity = timed("serve parity", phase_serve_parity, dev)
     counts, metrics, main_out = timed("main", phase_main, dev)
@@ -2889,10 +3160,13 @@ def main() -> None:
     del main_out
     gc_workloads, gc_counts, pir_counts = timed(
         "gc workloads", phase_gc_workloads, dev)
+    workers, w_counts, w_ntt = timed("workers", phase_workers, dev)
     rows, gate_launch = timed("record", kernel_record, dev, {
-        "gc main": counts, "gc workloads": gc_counts}, errs)
+        "gc main": counts, "gc workloads": gc_counts, "workers": w_counts},
+        errs)
     ntt_rows, ntt_big = timed("ntt record", ntt_record, dev, {
-        "ckks main": ntt_counts, "gc workloads": pir_counts}, ntt_errs)
+        "ckks main": ntt_counts, "gc workloads": pir_counts,
+        "workers": w_ntt}, ntt_errs)
     attn_row, attn_timing = timed("attn record", attn_record, dev,
                                   attn_counts, attn_err)
     profiled = timed("profile", phase_profile, dev)
@@ -2909,7 +3183,7 @@ def main() -> None:
         "serve_parity": serve_parity, "attn": attn_timing,
         "serve_stablelm": stablelm,
         "serve_profile": serve_profiled, "baselines": baselines,
-        "gc_workloads": gc_workloads,
+        "gc_workloads": gc_workloads, "workers": workers,
         "phases_s": phases,
         "total_s": time.perf_counter() - t_all}))
     print(smi, flush=True)

@@ -8,8 +8,10 @@ plan (replacement under MIN, MinClean, LRU or FIFO + scheduled
 prefetching swaps) → execute, with the engine's frames in device memory,
 swap storage in pinned host memory or a swap file, and every AND gate
 (garbled circuits) or NTT and modular product (CKKS) through hand-written
-kernels (``kernels/garble``, ``kernels/ntt``); and the paper's unbounded
-baseline (``plan_mode="unbounded"``) and scalar engine loop.
+kernels (``kernels/garble``, ``kernels/ntt``); the paper's unbounded
+baseline (``plan_mode="unbounded"``) and scalar engine loop; and
+multi-worker jobs (``num_workers`` engines a party, NET_* directives
+between them) on the overlap backend (``exec_backend="overlap"``).
 
     from repro_torch import JobSpec, Session
     spec = JobSpec("merge", n=16384, memory_budget=0.4, prefetch_pages=64)

@@ -11,6 +11,9 @@
     python -m repro_torch run --workload merge -n 32 --budget 6 \\
         --prefetch 1 --policy lru --swap-bypass --exec-backend scalar \\
         --storage memmap --real --check [--device cpu]
+    python -m repro_torch run --workload merge -n 256 --workers 4 \\
+        --budget 0.4 --prefetch 16 --exec-backend overlap --real --check \\
+        [--parallel thread] [--device cpu]
 
 ``run`` traces, plans and executes in-process (trace → plan → execute)
 and prints a JSON summary: timings, swap traffic, the engine's frame
@@ -20,12 +23,16 @@ transforms.  The
 knobs are the JAX package's: ``--mode`` (memory, or unbounded: the
 traced program over the whole virtual address space, no budget; the
 default is unbounded without ``--budget``), ``--policy``,
-``--swap-bypass``, ``--exec-backend`` (batched by default, or scalar) and
-``--storage`` (ram: pinned host pages, or memmap: a swap file).  Garbled
-circuits run with real two-party crypto with ``--real``, and otherwise in
-the clear through the plaintext oracle driver; CKKS is real crypto either
-way.  The streaming planner, saved plans, the overlap backend and the
-fleet launcher wait for later slices.
+``--swap-bypass``, ``--exec-backend`` (batched by default, scalar, or
+overlap), ``--storage`` (ram: pinned host pages, or memmap: a swap file),
+``--workers`` (engines per party, which exchange values over NET_*
+directives) and ``--parallel`` (how the workers' programs are planned:
+serial, thread or process).  Garbled circuits run with real two-party
+crypto with ``--real``, and otherwise in the clear through the plaintext
+oracle driver; CKKS is real crypto either way.  The summary gives each
+engine's swaps and NET traffic, and the transport's traffic per link
+(worker links and party links, by global rank).  The streaming planner,
+saved plans and the fleet launcher wait for later slices.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import json
 import sys
 
 from .api import JobSpec, Session
+from .core.transport import aggregate_links
 from .protocols.ckks.driver import homomorphic_ops
 from .workloads import all_names
 
@@ -52,7 +60,7 @@ def _protocol_summary(s: Session, real: bool) -> dict:
         he = homomorphic_ops(s.op_counts)
         p = s.ckks_params()
         return {"ckks": {"n_ring": p.n_ring, "levels": p.levels},
-                "instructions": s.engine_stats[0].instructions,
+                "instructions": [e.instructions for e in s.engine_stats],
                 "op_counts": s.op_counts,
                 "homomorphic_ops": he, "homomorphic_ops_per_s": he / t,
                 "transforms": {k: s.ckks_counts.get(k, 0)
@@ -60,7 +68,7 @@ def _protocol_summary(s: Session, real: bool) -> dict:
                 "mul_mod_rows": s.ckks_counts.get("mul_mod", 0)}
     if not real:
         return {"driver": "gc-plaintext",
-                "instructions": s.engine_stats[0].instructions}
+                "instructions": [e.instructions for e in s.engine_stats]}
     ands = s.gate_counts[0].ands
     return {"driver": "gc-2party", "and_gates": ands,
             "and_gates_per_s": ands / t}
@@ -70,7 +78,9 @@ def _run(args: argparse.Namespace) -> int:
     mode = args.mode or ("memory" if args.budget is not None
                          else "unbounded")
     try:
-        spec = JobSpec(args.workload, n=args.n, memory_budget=args.budget,
+        spec = JobSpec(args.workload, n=args.n, num_workers=args.workers,
+                       parallel_plan=args.parallel,
+                       memory_budget=args.budget,
                        lookahead=args.lookahead, prefetch_pages=args.prefetch,
                        policy=args.policy, swap_bypass=args.swap_bypass,
                        plan_mode=mode, exec_backend=args.exec_backend,
@@ -91,12 +101,20 @@ def _run(args: argparse.Namespace) -> int:
                  else None, "lookahead": s.spec.lookahead,
                  "policy": s.spec.policy, "swap_bypass": s.spec.swap_bypass,
                  "exec_backend": s.spec.exec_backend,
-                 "storage": s.spec.storage},
+                 "storage": s.spec.storage,
+                 "num_workers": s.spec.num_workers,
+                 "parallel_plan": s.spec.parallel_plan},
         "timings_s": s.timings,
         **_protocol_summary(s, args.real),
         "swap_ins": [e.swap_ins for e in s.engine_stats],
         "swap_outs": [e.swap_outs for e in s.engine_stats],
         "frame_bytes": [e.frame_bytes for e in s.engine_stats],
+        "net_messages": [e.net_messages for e in s.engine_stats],
+        "posted_recvs": [e.posted_recvs for e in s.engine_stats],
+        "max_inflight_recvs": [e.max_inflight_recvs
+                               for e in s.engine_stats],
+        "links": {f"{src}->{dst}": [t.messages, t.bytes] for (src, dst), t
+                  in sorted(aggregate_links(s.transport_stats).items())},
         "outputs": len(out),
         "checked": bool(args.check),
     }
@@ -129,9 +147,16 @@ def main(argv: list[str] | None = None) -> int:
     r.add_argument("--swap-bypass", action="store_true",
                    help="serve a read from its page's pending write")
     r.add_argument("--exec-backend", dest="exec_backend", default="batched",
-                   choices=("scalar", "batched"),
-                   help="engine loop: a batch schedule, or one instruction "
-                   "at a time; outputs are identical")
+                   choices=("scalar", "batched", "overlap"),
+                   help="engine loop: a batch schedule, one instruction at "
+                   "a time, or an overlap schedule (NET sends hoisted, "
+                   "receives completed where needed); outputs are "
+                   "identical")
+    r.add_argument("--workers", type=int, default=1,
+                   help="engines per party (NET_* directives between them)")
+    r.add_argument("--parallel", default="serial",
+                   choices=("serial", "thread", "process"),
+                   help="how the workers' programs are planned")
     r.add_argument("--storage", default="ram", choices=("ram", "memmap"),
                    help="swap storage: pinned host pages or a swap file")
     r.add_argument("--real", action="store_true",

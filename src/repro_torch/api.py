@@ -3,29 +3,37 @@ counterpart of ``repro.api`` for the paths the port runs:
 
     trace() → plan() → execute(real=True, check=...)
 
-``execute`` dispatches on the workload's protocol.  A garbled-circuit job
-runs two parties, one worker each: the garbler and the evaluator are two
-engine threads in this process, on one device, over an in-process channel,
-and their AND gates go through the half-gates kernels.  With
-``real=False`` it runs one engine with the plaintext oracle driver (the
-JAX package's ``gc-plaintext``) instead.  A CKKS job runs
-one engine whose transforms and products go through the NTT kernels.  The
-device is the card unless the caller passes ``device="cpu"``; without a
-card and without that, the Session raises.
+``execute`` dispatches on the workload's protocol.  Every party runs
+``num_workers`` engines, all threads of this process on one device over
+one in-process transport of ``parties * num_workers`` endpoints (global
+rank ``party * num_workers + worker``).  Workers of a party exchange
+values through NET_* directives over their worker links (each engine has
+a ``PartyView`` of its party's ranks).  A garbled-circuit job runs two
+parties: garbler worker k streams its tables to evaluator worker k over
+their own party link, and every AND gate goes through the half-gates
+kernels.  With ``real=False`` it runs one party with the plaintext
+oracle driver (the JAX package's ``gc-plaintext``) instead.  A CKKS job
+runs one party whose transforms and products go through the NTT kernels.
+The device is the card unless the caller passes ``device="cpu"``;
+without a card and without that, the Session raises.
 
 The knobs are the JAX package's, with its names and values: ``plan_mode``
 "memory" (planned paging at a budget) or "unbounded" (the baseline: the
 traced program over the whole virtual address space); ``policy`` (MIN,
 MinClean, LRU, FIFO) and ``swap_bypass``; ``exec_backend`` "batched" (a
-batch schedule, the port's default) or "scalar" (one instruction at a
-time; the reference's default); ``storage`` "ram" (pinned host pages) or
-"memmap" (a swap file).  The streaming planner, the overlap backend and
-multi-worker jobs wait for later slices.
+batch schedule, the port's default), "scalar" (one instruction at a
+time; the reference's default) or "overlap" (an overlap schedule: NET
+sends hoisted, receives posted early and completed where needed);
+``storage`` "ram" (pinned host pages) or "memmap" (a swap file);
+``num_workers`` and ``parallel_plan`` (serial, thread or process
+planning of the workers' programs).  The streaming planner waits for a
+later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 
 import numpy as np
@@ -37,11 +45,13 @@ from .core.liveness import stripped_touches, working_set_pages
 from .core.planner import PlanConfig, PlanReport, plan
 from .core.replacement import POLICIES
 from .core.storage import MemmapStorage, PinnedStorage
-from .core.transport import InprocTransport, LinkStats
-from .core.workers import EngineJob, run_engines
+from .core.transport import InprocTransport, LinkStats, PartyView
+from .core.workers import PARALLEL_MODES, EngineJob, plan_workers, \
+    run_engines
 from .exec.batched_ckks import BatchedCkksDriver
 from .exec.batched_gc import BatchedGCDriver, BatchedPlaintextDriver
 from .exec.batching import build_batch_schedule
+from .exec.overlap import build_overlap_schedule
 from .kernels import resolve_device
 from .protocols.ckks.driver import CkksDriver
 from .protocols.ckks.params import CkksParams
@@ -51,9 +61,13 @@ from .protocols.garbled.gates import GateCounts, PartyChannel
 from .workloads import Workload, get
 from .workloads.ckks_workloads import PARAMS as DEFAULT_CKKS
 
-#: the garbler's label seed, as in the JAX package's two-party Session
+#: the garbler's label seed, as in the JAX package's two-party Session;
+#: every garbler worker draws from it, so all hold the same R and the
+#: labels one sends a sibling stay valid there
 GARBLER_SEED = 7
-#: the CKKS driver's key and noise seed, as in the JAX package's Session
+#: the CKKS driver's key and noise seed, as in the JAX package's Session;
+#: every CKKS worker uses it, so all hold the same keys and their partial
+#: sums add
 CKKS_SEED = 0xCEC5
 #: the largest |output - oracle| a CKKS job may show (the JAX package's)
 CKKS_ATOL = 2e-2
@@ -62,8 +76,7 @@ CKKS_ATOL = 2e-2
 #: yet name the ROADMAP item that ports them
 PLAN_MODES = ("memory", "streaming", "unbounded")
 EXEC_BACKENDS = ("scalar", "batched", "overlap")
-NOT_PORTED = {"streaming": "the streaming planner (ROADMAP Queue 1 item 6)",
-              "overlap": "the overlap backend (ROADMAP Queue 1 item 4)"}
+NOT_PORTED = {"streaming": "the streaming planner (ROADMAP Queue 1 item 6)"}
 
 #: swap storages by the JAX package's names; "ram" is pinned host memory
 STORAGES = {"ram": PinnedStorage, "memmap": MemmapStorage}
@@ -77,17 +90,20 @@ class JobSpec:
     count; a ``float`` in (0, 1] is a fraction of the working set, resolved
     with the JAX package's clamping (at least ``8 + prefetch_pages``
     frames, below the working set so there is real memory pressure, the
-    prefetch buffer at most a quarter of the budget).  ``None`` requires
+    prefetch buffer at most a quarter of the budget), per worker against
+    that worker's own working set.  ``None`` requires
     ``plan_mode="unbounded"``, which takes no budget."""
     workload: str
     n: int | None = None                  # records per party (None: default)
+    num_workers: int = 1                  # engines per party
     memory_budget: int | float | None = None
     lookahead: int = 10_000               # plan knobs (paper l, B, policy)
     prefetch_pages: int = 0
     policy: str = "min"
     swap_bypass: bool = False
     plan_mode: str = "memory"             # memory | unbounded
-    exec_backend: str = "batched"         # batched | scalar
+    parallel_plan: bool | str = "serial"  # serial | thread | process
+    exec_backend: str = "batched"         # batched | scalar | overlap
     storage: str = "ram"                  # ram | memmap
     ckks_ring: int | None = None          # CKKS N override (benchmarks)
     ckks_levels: int | None = None
@@ -114,6 +130,13 @@ class JobSpec:
         if isinstance(self.memory_budget, float) and \
                 not 0.0 < self.memory_budget <= 1.0:
             raise ValueError("fractional memory_budget must be in (0, 1]")
+        if self.num_workers < 1:
+            raise ValueError(f"num_workers must be at least 1, got "
+                             f"{self.num_workers}")
+        if {False: "serial", True: "thread"}.get(
+                self.parallel_plan, self.parallel_plan) not in PARALLEL_MODES:
+            raise ValueError(f"parallel_plan must be one of "
+                             f"{PARALLEL_MODES}, got {self.parallel_plan!r}")
 
     def normalized(self, workload: Workload) -> "JobSpec":
         return self if self.n is not None else \
@@ -121,7 +144,8 @@ class JobSpec:
 
 
 def resolve_plan_config(spec: JobSpec, working_set: int) -> PlanConfig:
-    """Turn a spec's budget into a concrete PlanConfig."""
+    """Turn a spec's budget into a concrete PlanConfig for one worker of
+    ``working_set`` pages."""
     b = spec.memory_budget
     prefetch = spec.prefetch_pages
     if isinstance(b, float):
@@ -161,18 +185,23 @@ def check_outputs(w: Workload, n: int, outputs: dict[int, np.ndarray],
 class Session:
     """Staged trace→plan→execute over one JobSpec on one device.
 
-    After ``execute()``: ``engines`` (each holding its final ``memory``),
-    their ``engine_stats`` and (closed) ``storages``, ``timings``
-    (``trace_s``, ``plan_s``, ``batch_schedule_s`` on the batched backend,
-    ``execute_s``) and the protocol's records.
-    Garbled circuits run for real: ``gate_counts`` (garbler, evaluator),
-    ``transport_stats`` of the party link and, with ``digest=True``,
-    ``table_digest`` of the garbled-table stream; in the clear, one
-    engine.  ``workload`` overrides the registry's (the JAX package's
-    runner passes one with other CKKS parameters).  CKKS:
-    ``ckks_counts``, the rows of the transforms and modular products the
-    job asked for (``ntt_forward``, ``ntt_inverse``, ``mul_mod``; key
-    generation included), and ``op_counts``, its instructions by opcode."""
+    After ``execute()``: ``engines`` by global rank (each holding its final
+    ``memory``), their ``engine_stats`` and (closed) ``storages``,
+    ``timings`` (``trace_s``, ``plan_s``, ``batch_schedule_s`` or
+    ``overlap_schedule_s``, ``execute_s``), ``transport_stats`` (sent
+    traffic per (src rank, dst rank, tag): worker links and party links)
+    and the protocol's records.  Garbled circuits run for real:
+    ``gate_counts`` (garbler, evaluator; each summed over the party's
+    workers) and, with ``digest=True``, ``table_digests``, one SHA-256 of
+    the garbled-table stream per party link (garbler rank, evaluator
+    rank), and ``table_digest``, that of the one link or, with several,
+    of their digests in rank order; in the clear, one party.
+    ``workload`` overrides the registry's (the JAX package's runner
+    passes one with other CKKS parameters).  CKKS: ``ckks_counts``, the
+    rows of the transforms and modular products the job asked for
+    (``ntt_forward``, ``ntt_inverse``, ``mul_mod``; key generation
+    included), and ``op_counts``, its instructions by opcode, each summed
+    over the workers."""
 
     def __init__(self, spec: JobSpec, device: str | torch.device | None = None,
                  workload: Workload | None = None):
@@ -184,7 +213,8 @@ class Session:
         self.spec = spec.normalized(self.workload)
         self._progs: list[Program] | None = None
         self._planned: list[Program] | None = None
-        self.config: PlanConfig | None = None
+        self._ws: dict[int, int] = {}
+        self.configs: list[PlanConfig] = []
         self.plan_reports: list[PlanReport] = []
         self.engines: list[Engine] = []
         self.engine_stats: list[EngineStats] = []
@@ -192,6 +222,7 @@ class Session:
         self.gate_counts: list[GateCounts] = []
         self.transport_stats: dict[tuple[int, int, int], LinkStats] = {}
         self.timings: dict[str, float] = {}
+        self.table_digests: dict[tuple[int, int], str] = {}
         self.table_digest: str | None = None
         self.ckks_counts: dict[str, int] = {}
         self.op_counts: dict[str, int] = {}
@@ -199,6 +230,11 @@ class Session:
     @property
     def protocol(self) -> str:
         return self.workload.protocol
+
+    @property
+    def config(self) -> PlanConfig | None:
+        """Worker 0's plan config (None before planning or unbounded)."""
+        return self.configs[0] if self.configs else None
 
     def ckks_params(self) -> CkksParams:
         """The workload's CKKS parameters with the spec's ring and levels
@@ -213,22 +249,29 @@ class Session:
             if self.protocol == "ckks" else {}
 
     def trace(self) -> list[Program]:
-        """Trace the workload's DSL program (placement, §6.1)."""
+        """Trace the workload's DSL program, one per worker (placement,
+        §6.1)."""
         if self._progs is None:
             t0 = time.perf_counter()
-            self._progs = self.workload.trace(self.spec.n, 1, **self._extra())
+            self._progs = self.workload.trace(self.spec.n,
+                                              self.spec.num_workers,
+                                              **self._extra())
             self.timings["trace_s"] = time.perf_counter() - t0
         return self._progs
 
-    def working_set(self) -> int:
-        """Peak live pages of the virtual trace (w of §2.4.3)."""
-        prog = self.trace()[0]
-        return working_set_pages(stripped_touches(prog)[1])
+    def working_set(self, worker: int = 0) -> int:
+        """Peak live pages of one worker's virtual trace (w of §2.4.3)."""
+        if worker not in self._ws:
+            prog = self.trace()[worker]
+            self._ws[worker] = working_set_pages(stripped_touches(prog)[1])
+        return self._ws[worker]
 
     def plan(self) -> list[Program]:
-        """Replacement + scheduling under the spec's budget (§6.1).  An
-        unbounded job's "plan" is the traced program itself, with an empty
-        report and no config."""
+        """Replacement + scheduling of each worker's program under the
+        spec's budget, resolved against that worker's working set (§6.1),
+        serially, in threads or in processes (``parallel_plan``).  An
+        unbounded job's "plan" is the traced programs themselves, with
+        empty reports and no configs."""
         if self._planned is None:
             progs = self.trace()
             if self.spec.plan_mode == "unbounded":
@@ -236,67 +279,85 @@ class Session:
                 self.plan_reports = [PlanReport() for _ in progs]
                 return self._planned
             t0 = time.perf_counter()
-            self.config = resolve_plan_config(self.spec, self.working_set())
-            mem, report = plan(progs[0], self.config)
+            self.configs = [resolve_plan_config(self.spec,
+                                                self.working_set(w))
+                            for w in range(len(progs))]
+            self._planned, self.plan_reports = plan_workers(
+                progs, self.configs, parallel=self.spec.parallel_plan)
             self.timings["plan_s"] = time.perf_counter() - t0
-            self._planned = [mem]
-            self.plan_reports = [report]
         return self._planned
 
     def adopt_plan(self, programs: list[Program]) -> None:
-        """Execute these memory programs instead of planning (e.g. the JAX
-        package's plan, carried over by ``interop.program_from_records``)."""
-        if len(programs) != 1 or programs[0].phase != "memory":
-            raise ValueError("expected one memory-phase program")
+        """Execute these memory programs, one per worker, instead of
+        planning (e.g. the JAX package's plan, carried over by
+        ``interop.program_from_records``)."""
+        if len(programs) != self.spec.num_workers or \
+                any(p.phase != "memory" for p in programs):
+            raise ValueError(f"expected {self.spec.num_workers} "
+                             f"memory-phase programs, one per worker")
         self._planned = list(programs)
 
     def execute(self, real: bool = True, check: bool = False,
                 digest: bool = False) -> dict[int, np.ndarray]:
-        """Run the plan; returns the ``tag -> value`` outputs (checked
-        against the oracle with ``check``).  Garbled circuits run with real
-        two-party crypto, or in the clear with ``real=False`` (the
-        plaintext oracle driver); ``digest`` hashes the garbled-table
-        stream, which copies every table to the host.  CKKS is real crypto
-        either way."""
+        """Run the plan; returns the merged ``tag -> value`` outputs of
+        every driver that has them (checked against the oracle with
+        ``check``).  Garbled circuits run with real two-party crypto, or in
+        the clear with ``real=False`` (the plaintext oracle driver);
+        ``digest`` hashes the garbled-table stream of each party link,
+        which copies every table to the host.  CKKS is real crypto either
+        way."""
         if digest and not (real and self.protocol == "gc"):
             raise ValueError("digest=True hashes garbled tables: it needs a "
                              "garbled-circuit job with real=True")
         planned = self.plan()
-        sched = None
+        scheds = oscheds = None
+        t0 = time.perf_counter()
         if self.spec.exec_backend == "batched":
-            t0 = time.perf_counter()
-            sched = build_batch_schedule(planned[0])
+            scheds = [build_batch_schedule(p) for p in planned]
             self.timings["batch_schedule_s"] = time.perf_counter() - t0
+        elif self.spec.exec_backend == "overlap":
+            oscheds = [build_overlap_schedule(p) for p in planned]
+            self.timings["overlap_schedule_s"] = time.perf_counter() - t0
         if self.protocol == "ckks":
-            outputs = self._execute_ckks(planned[0], sched)
+            outputs = self._execute_ckks(planned, scheds, oscheds)
         elif real:
-            outputs = self._execute_gc(planned[0], sched, digest)
+            outputs = self._execute_gc(planned, scheds, oscheds, digest)
         else:
-            outputs = self._execute_plaintext(planned[0], sched)
+            outputs = self._execute_plaintext(planned, scheds, oscheds)
         if check:
             check_outputs(self.workload, self.spec.n, outputs,
                           **self._extra())
         return outputs
 
-    def _run(self, prog: Program, drivers: list, batched_cls, sched,
-             transport: InprocTransport) -> None:
-        """Run one engine per driver (party ``p`` is ``drivers[p]``) over
-        ``prog``: through ``batched_cls(driver)`` when there is a batch
-        schedule, the driver itself on the scalar loop, each with a fresh
-        storage of the spec's kind for the pages ``prog`` writes out.  The
-        storages are built inside the execute time and closed at its end,
-        also when a run fails."""
+    def _run(self, progs: list[Program], drivers: list, batched_cls,
+             scheds, oscheds, transport: InprocTransport) -> None:
+        """Run one engine per driver over ``transport``: the driver of
+        global rank ``party * p + worker`` is ``drivers[rank]`` and runs
+        ``progs[worker]`` with a ``PartyView`` of its party's ranks.  A
+        driver goes through ``batched_cls(driver)`` when there is a batch
+        or an overlap schedule (the overlap loop batches its local groups
+        through it), and runs as it is on the scalar loop.  Each engine
+        gets a fresh storage of the spec's kind for the pages its program
+        writes out; the storages are built inside the execute time and
+        closed at its end, also when a run fails."""
+        p = self.spec.num_workers
+        wrap = scheds is not None or oscheds is not None
         t0 = time.perf_counter()
         try:
             jobs = []
-            for p, drv in enumerate(drivers):
+            for rank, drv in enumerate(drivers):
+                party, wk = divmod(rank, p)
+                prog = progs[wk]
                 storage = STORAGES[self.spec.storage](
                     swapped_pages(prog), (prog.page_slots, drv.lane),
                     drv.dtype, self.device)
                 self.storages.append(storage)
                 jobs.append(EngineJob(
-                    prog, batched_cls(drv) if sched is not None else drv,
-                    self.device, storage, sched, tag=f"party{p}/worker0"))
+                    prog, batched_cls(drv) if wrap else drv, self.device,
+                    storage, scheds[wk] if scheds else None,
+                    tag=f"party{party}/worker{wk}",
+                    net=PartyView(transport, party * p, p),
+                    overlap_schedule=oscheds[wk] if oscheds else None))
             self.engines = run_engines(jobs, transport)
             self.engine_stats = [e.stats for e in self.engines]
             if self.device.type == "cuda":
@@ -306,47 +367,80 @@ class Session:
             for storage in self.storages:
                 storage.close()
         self.timings["execute_s"] = time.perf_counter() - t0
-
-    def _execute_gc(self, planned: Program, sched, digest: bool
-                    ) -> dict[int, np.ndarray]:
-        dev = self.device
-        w, n = self.workload, self.spec.n
-        transport = InprocTransport(2)
-        ch = PartyChannel(transport, src=0, dst=1, digest=digest)
-        gd = GarblerDriver(ch, dev, w.inputs(n, 0, 1), seed=GARBLER_SEED)
-        ed = EvaluatorDriver(ch, dev, w.inputs(n, 0, 1))
-        self._run(planned, [gd, ed], BatchedGCDriver, sched, transport)
-        self.gate_counts = [gd.gates.counts, ed.gates.counts]
         self.transport_stats = transport.stats()
-        if digest:
-            self.table_digest = ch.table_digest()
-        return dict(ed.outputs)
 
-    def _execute_plaintext(self, planned: Program, sched
-                           ) -> dict[int, np.ndarray]:
-        """One engine over a one-party transport, in the clear."""
-        drv = PlaintextDriver(self.workload.inputs(self.spec.n, 0, 1))
-        self._run(planned, [drv], BatchedPlaintextDriver, sched,
-                  InprocTransport(1))
-        return dict(drv.outputs)
-
-    def _execute_ckks(self, planned: Program, sched
-                      ) -> dict[int, np.ndarray]:
-        """One engine over a one-party transport.  Key generation (the
-        driver's context) counts in ``execute_s``, as it runs inside the
-        reference's execute too; ``keygen_s`` is its share."""
+    def _execute_gc(self, planned: list[Program], scheds, oscheds,
+                    digest: bool) -> dict[int, np.ndarray]:
+        """Two parties of p workers: garbler worker k is rank k, evaluator
+        worker k rank p + k, and each pair has its own party link."""
         dev = self.device
-        transport = InprocTransport(1)
+        w, n, p = self.workload, self.spec.n, self.spec.num_workers
+        transport = InprocTransport(2 * p)
+        chans = [PartyChannel(transport, src=k, dst=p + k, digest=digest)
+                 for k in range(p)]
+        gds = [GarblerDriver(chans[k], dev, w.inputs(n, k, p),
+                             seed=GARBLER_SEED) for k in range(p)]
+        eds = [EvaluatorDriver(chans[k], dev, w.inputs(n, k, p))
+               for k in range(p)]
+        self._run(planned, gds + eds, BatchedGCDriver, scheds, oscheds,
+                  transport)
+        self.gate_counts = [_sum_counts(d.gates.counts for d in ds)
+                            for ds in (gds, eds)]
+        if digest:
+            self.table_digests = {(c.src, c.dst): c.table_digest()
+                                  for c in chans}
+            self.table_digest = chans[0].table_digest() if p == 1 else \
+                hashlib.sha256("".join(self.table_digests[c.src, c.dst]
+                                       for c in chans).encode()).hexdigest()
+        return _merged(eds)
+
+    def _execute_plaintext(self, planned: list[Program], scheds, oscheds
+                           ) -> dict[int, np.ndarray]:
+        """One party of p engines, in the clear."""
+        w, n, p = self.workload, self.spec.n, self.spec.num_workers
+        drvs = [PlaintextDriver(w.inputs(n, k, p)) for k in range(p)]
+        self._run(planned, drvs, BatchedPlaintextDriver, scheds, oscheds,
+                  InprocTransport(p))
+        return _merged(drvs)
+
+    def _execute_ckks(self, planned: list[Program], scheds, oscheds
+                      ) -> dict[int, np.ndarray]:
+        """One party of p engines.  Key generation (each driver's context)
+        counts in ``execute_s``, as it runs inside the reference's execute
+        too; ``keygen_s`` is its share."""
+        dev = self.device
+        w, n, p = self.workload, self.spec.n, self.spec.num_workers
         t0 = time.perf_counter()
-        drv = CkksDriver(self.ckks_params(),
-                         self.workload.inputs(self.spec.n, 0, 1,
-                                              **self._extra()),
-                         seed=CKKS_SEED, device=dev)
+        drvs = [CkksDriver(self.ckks_params(),
+                           w.inputs(n, k, p, **self._extra()),
+                           seed=CKKS_SEED, device=dev) for k in range(p)]
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.timings["keygen_s"] = time.perf_counter() - t0
-        self._run(planned, [drv], BatchedCkksDriver, sched, transport)
+        self._run(planned, drvs, BatchedCkksDriver, scheds, oscheds,
+                  InprocTransport(p))
         self.timings["execute_s"] += self.timings["keygen_s"]
-        self.ckks_counts = dict(drv.ctx.counts)
-        self.op_counts = {op.name: k for op, k in drv.op_counts.items()}
-        return dict(drv.outputs)
+        self.ckks_counts, self.op_counts = {}, {}
+        for d in drvs:
+            for k, v in d.ctx.counts.items():
+                self.ckks_counts[k] = self.ckks_counts.get(k, 0) + v
+            for op, v in d.op_counts.items():
+                self.op_counts[op.name] = self.op_counts.get(op.name, 0) + v
+        return _merged(drvs)
+
+
+def _sum_counts(counts) -> GateCounts:
+    total = GateCounts()
+    for c in counts:
+        total.ands += c.ands
+        total.xors += c.xors
+        total.consts += c.consts
+    return total
+
+
+def _merged(drivers) -> dict[int, np.ndarray]:
+    """The outputs of every driver that has them, in rank order."""
+    out: dict[int, np.ndarray] = {}
+    for d in drivers:
+        out.update(d.outputs)
+    return out

@@ -1,5 +1,5 @@
 """MAGE's execution engine (§5, §7.1), on PyTorch: the port's copy of
-``repro.core.engine`` for one worker per party.
+``repro.core.engine``.
 
 An interpreter for programs in two phases:
 
@@ -15,10 +15,15 @@ An interpreter for programs in two phases:
   is an error.
 
 Each instruction's operands are views into the memory tensor; everything
-that is not a directive goes to the protocol driver.  The engine walks a
-batch schedule (``exec.batching``) when it is given one, and otherwise the
-scalar loop: one instruction at a time, in program order.  NET_*
-directives (multi-worker jobs) wait for a later slice.
+that is not a directive goes to the protocol driver.  Network directives
+move spans between workers of the same party over the transport
+(``core.transport``): the engine addresses peers by worker id through a
+:class:`~repro_torch.core.transport.PartyView`; a program with NET_*
+directives and no view raises.  The engine walks an overlap schedule
+(``exec.overlap``: sends hoisted, receives posted early and completed
+where their data is needed) or a batch schedule (``exec.batching``) when
+it is given one, and otherwise the scalar loop: one instruction at a
+time, in program order.  All three give the same results bit for bit.
 """
 
 from __future__ import annotations
@@ -33,9 +38,11 @@ import torch
 from .bytecode import (_IMM_OFF, _IN_OFF, _OUT_OFF, Instr, Op, Program,
                        iter_record_chunks, unpack_heads)
 from .storage import swap_io
+from .transport import PartyView, TransportError, nbytes
 
 if TYPE_CHECKING:
     from ..exec.batching import BatchSchedule
+    from ..exec.overlap import OverlapSchedule
 
 
 class ProtocolDriver:
@@ -76,6 +83,22 @@ class EngineStats:
     #: device bytes the engine allocated: the physical frames plus the
     #: prefetch buffer, or (unbounded) the whole virtual address space
     frame_bytes: int = 0
+    net_messages: int = 0
+    net_sent_bytes: int = 0
+    net_recv_bytes: int = 0
+    #: NET_RECVs posted as deferred completion handles (overlap backend)
+    posted_recvs: int = 0
+    #: peak simultaneously outstanding receive handles (overlap backend)
+    max_inflight_recvs: int = 0
+    #: per-link totals, (src_worker, dst_worker) -> [messages, bytes]; a
+    #: key with src == this worker is outgoing traffic, dst == this worker
+    #: incoming.  Counted by the engine thread itself.
+    net_links: dict = dataclasses.field(default_factory=dict)
+
+    def _net_count(self, src: int, dst: int, n: int) -> None:
+        link = self.net_links.setdefault((src, dst), [0, 0])
+        link[0] += 1
+        link[1] += n
 
 
 #: the directives that move pages to and from storage
@@ -94,19 +117,26 @@ class Engine:
     """Interprets one memory- or virtual-phase ``Program`` on ``device``.
 
     ``storage`` holds the pages the program writes out (unused by a
-    virtual program); its owner closes it.  With a ``batch_schedule`` the
-    engine runs the batched path and ``driver`` is a batched driver
-    (``exec.base.BatchedProtocolDriver``); without one it runs the scalar
-    loop, and any driver will do."""
+    virtual program); its owner closes it.  ``net`` is the engine's
+    party-scoped view of the transport (NET_* directives).  With a
+    ``batch_schedule`` the engine runs the batched path and ``driver`` is
+    a batched driver (``exec.base.BatchedProtocolDriver``); an
+    ``overlap_schedule`` takes precedence and batches its local groups
+    when the driver can; with neither it runs the scalar loop, and any
+    driver will do."""
 
     def __init__(self, program: Program, driver, device: torch.device,
-                 storage=None, batch_schedule: BatchSchedule | None = None):
+                 storage=None, batch_schedule: BatchSchedule | None = None,
+                 net: PartyView | None = None,
+                 overlap_schedule: OverlapSchedule | None = None):
         if program.phase not in ("memory", "virtual"):
             raise ValueError(f"expected a memory or virtual program, got "
                              f"phase {program.phase!r}")
         self.prog = program
         self.driver = driver
         self.batch_schedule = batch_schedule
+        self.overlap_schedule = overlap_schedule
+        self.net = net
         psize = program.page_slots
         if program.phase == "virtual":
             slots = max(program.vspace_slots, 1)
@@ -131,6 +161,13 @@ class Engine:
         addr, n = span
         return self.memory[addr:addr + n]
 
+    def _net(self) -> PartyView:
+        if self.net is None:
+            raise TransportError(
+                "program has NET_* directives but the engine has no worker "
+                "link (pass net=PartyView(...))")
+        return self.net
+
     # -- main loop ---------------------------------------------------------------
 
     def run(self) -> EngineStats:
@@ -138,10 +175,12 @@ class Engine:
         try:
             with (torch.cuda.device(dev) if dev.type == "cuda"
                   else contextlib.nullcontext()):
-                if self.batch_schedule is None:
-                    self._run_scalar()
-                else:
+                if self.overlap_schedule is not None:
+                    self._run_loop_overlap()
+                elif self.batch_schedule is not None:
                     self._run_loop()
+                else:
+                    self._run_scalar()
                 if self.io is not None:
                     self.io.flush()
         finally:
@@ -186,6 +225,80 @@ class Engine:
                 else:
                     for r in rows:
                         self._exec_one(instrs[r])
+            ci += 1
+        drv.finalize()
+
+    def _net_row(self, ins: Instr, is_send: bool
+                 ) -> tuple[int, int, torch.Tensor]:
+        """(peer, tag, span view) of a NET_SEND / NET_RECV."""
+        span = ins.ins[0] if is_send else ins.outs[0]
+        return int(ins.imm[0]), int(ins.imm[1]), self._view(span)
+
+    def _run_loop_overlap(self) -> None:
+        """Walk the overlap schedule (``exec.overlap``): NET_SENDs issued
+        at their hoisted position, NET_RECVs posted as deferred handles
+        (``recv_async``) and completed only at their K_RECV_WAIT group,
+        independent local work (batched where the driver can) in between.
+        The schedule keeps dataflow and per-channel order, so results
+        equal the scalar loop's bit for bit."""
+        from ..exec.overlap import K_LOCAL, K_RECV_WAIT, K_SEND
+        drv = self.driver
+        sched = self.overlap_schedule
+        sched.validate_for(self.prog)
+        batch_ops = (getattr(drv, "batch_ops", frozenset())
+                     if hasattr(drv, "execute_batch") else frozenset())
+        order, bounds = sched.order, sched.bounds
+        group_kind, group_op = sched.group_kind, sched.group_op
+        chunk_groups = sched.chunk_groups
+        stats = self.stats
+        w = self.prog.worker
+        ci = 0
+        for start, rec, instrs in iter_record_chunks(self.prog,
+                                                     sched.chunk_instrs,
+                                                     cache=True):
+            handles: dict[int, tuple] = {}
+            for g in range(chunk_groups[ci], chunk_groups[ci + 1]):
+                rows = order[bounds[g]:bounds[g + 1]]
+                kind = int(group_kind[g])
+                if kind == K_LOCAL:
+                    gop = int(group_op[g])
+                    if gop >= 0 and len(rows) >= 2 and rec is not None \
+                            and Op(gop) in batch_ops:
+                        self._exec_batch(Op(gop), rec, rows)
+                    else:
+                        for r in rows:
+                            self._exec_one(instrs[r])
+                elif kind == K_SEND:
+                    net = self._net()
+                    for r in rows:
+                        dst, tag, view = self._net_row(instrs[r], True)
+                        net.send_async(w, dst, tag, view)
+                        n = nbytes(view)
+                        stats.directives += 1
+                        stats.net_messages += 1
+                        stats.net_sent_bytes += n
+                        stats._net_count(w, dst, n)
+                elif kind == K_RECV_WAIT:
+                    for r in rows:
+                        h, src, n = handles.pop(int(r))
+                        h.wait()
+                        stats.directives += 1
+                        stats.net_messages += 1
+                        stats.net_recv_bytes += n
+                        stats._net_count(src, w, n)
+                else:  # K_RECV_POST
+                    net = self._net()
+                    for r in rows:
+                        src, tag, view = self._net_row(instrs[r], False)
+                        handles[int(r)] = (
+                            net.recv_async(src, w, tag, out=view), src,
+                            nbytes(view))
+                        stats.posted_recvs += 1
+                    if len(handles) > stats.max_inflight_recvs:
+                        stats.max_inflight_recvs = len(handles)
+            if handles:
+                raise AssertionError(
+                    f"{len(handles)} receive handles leaked past chunk {ci}")
             ci += 1
         drv.finalize()
 
@@ -239,10 +352,30 @@ class Engine:
             st.finish_out_waits += 1
         elif op == Op.FREE:
             pass
-        elif op in (Op.NET_SEND, Op.NET_RECV, Op.NET_BARRIER):
-            raise NotImplementedError(
-                "NET_* directives (multi-worker jobs) are not ported yet "
-                "(ROADMAP Queue 1 item 3)")
+        elif op == Op.NET_SEND:
+            st.directives += 1
+            dst, tag = instr.imm[0], instr.imm[1]
+            view = self._view(instr.ins[0])
+            self._net().send(self.prog.worker, dst, tag, view)
+            n = nbytes(view)
+            st.net_messages += 1
+            st.net_sent_bytes += n
+            st._net_count(self.prog.worker, dst, n)
+        elif op == Op.NET_RECV:
+            st.directives += 1
+            src, tag = instr.imm[0], instr.imm[1]
+            view = self._view(instr.outs[0])
+            self._net().recv(src, self.prog.worker, tag, out=view)
+            n = nbytes(view)
+            st.net_messages += 1
+            st.net_recv_bytes += n
+            st._net_count(src, self.prog.worker, n)
+        elif op == Op.NET_BARRIER:
+            # "wait until the posted send/recv with this tag is done"
+            # (bytecode.py): this engine's NET ops complete in place, so
+            # there is nothing to wait for; collective sync is the
+            # fabric's (PartyView.barrier), not an instruction's
+            st.directives += 1
         else:
             st.instructions += 1
             self.driver.execute(op, instr.imm,

@@ -1,22 +1,32 @@
-"""Worker tracing and the engine-orchestration core: the port's copy of the
-parts of ``repro.core.workers`` this slice runs (one worker per party;
-parallel and streaming planning wait for a later slice).
+"""Parallel execution (§5.1-§5.2, §6 "per-worker planning"): the port's
+copy of ``repro.core.workers`` (the streaming planner waits for a later
+slice).
+
+Workers follow the paper's distributed-memory model: each worker is one
+thread of computation with its own MAGE-physical address space; DSL
+programs are parameterized by (worker, num_workers) and move data between
+workers with explicit network directives (``send_value`` / ``recv_into``).
+Planning runs once per worker, independently: serially, in threads or in
+processes (programs and plan reports are picklable).
 
 ``run_engines`` is the single place that spawns engine threads and
-collects their errors: the two-party Session builds one
-:class:`EngineJob` per party and hands them here.
+collects their errors: the Session builds one :class:`EngineJob` per
+(party, worker) and hands them here.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
+import multiprocessing
 import threading
 from typing import Any, Callable, Sequence
 
-from .bytecode import Program
-from .dsl import trace
+from .bytecode import Op, Program
+from .dsl import Value, trace
 from .engine import Engine, ProtocolDriver
-from .transport import InprocTransport
+from .planner import PlanConfig, PlanReport, plan
+from .transport import InprocTransport, PartyView
 
 
 @dataclasses.dataclass
@@ -26,6 +36,20 @@ class ProgramOptions:
     num_workers: int = 1
     problem_size: int = 0
     extra: dict = dataclasses.field(default_factory=dict)
+
+
+def send_value(v: Value, dst: int, tag: int | None = None) -> int:
+    """Emit a NET_SEND of ``v`` to worker ``dst``; returns the tag (the
+    builder's next fresh tag unless one is given)."""
+    b = v.builder
+    tag = b.fresh_tag() if tag is None else tag
+    b.emit(Op.NET_SEND, ins=(v.span,), imm=(dst, tag))
+    return tag
+
+
+def recv_into(v: Value, src: int, tag: int) -> None:
+    """Emit a NET_RECV from worker ``src`` under ``tag`` into ``v``."""
+    v.builder.emit(Op.NET_RECV, outs=(v.span,), imm=(src, tag))
 
 
 def trace_workers(fn: Callable[[ProgramOptions], None], *, protocol: str,
@@ -45,29 +69,85 @@ def trace_workers(fn: Callable[[ProgramOptions], None], *, protocol: str,
     return progs
 
 
+# ---------------------------------------------------------------------------
+# per-worker planning
+# ---------------------------------------------------------------------------
+
+PARALLEL_MODES = ("serial", "thread", "process")
+
+
+def _plan_one(prog: Program, cfg: PlanConfig) -> tuple[Program, PlanReport]:
+    """Module-level so ``parallel="process"`` can pickle it."""
+    return plan(prog, cfg)
+
+
+def plan_workers(progs: Sequence[Program],
+                 cfg: PlanConfig | Sequence[PlanConfig],
+                 parallel: bool | str = False
+                 ) -> tuple[list[Program], list[PlanReport]]:
+    """Plan each worker's program independently (§6.1).
+
+    ``parallel`` picks the executor: ``False`` / ``"serial"`` plans
+    in-line, ``True`` / ``"thread"`` one planner thread per worker,
+    ``"process"`` one process per worker (spawned: a forked child of a
+    process that holds a CUDA context must not touch the card, and a
+    fresh one need not care).  ``cfg`` is one PlanConfig or one per
+    worker (fractional budgets resolve per working set)."""
+    cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(progs)
+    if len(cfgs) != len(progs):
+        raise ValueError(f"{len(cfgs)} configs for {len(progs)} workers")
+    mode = {False: "serial", True: "thread"}.get(parallel, parallel)
+    if mode not in PARALLEL_MODES:
+        raise ValueError(f"parallel must be one of {PARALLEL_MODES}, "
+                         f"got {parallel!r}")
+    if mode == "serial" or len(progs) <= 1:
+        results = list(map(_plan_one, progs, cfgs))
+    elif mode == "thread":
+        with cf.ThreadPoolExecutor(max_workers=len(progs),
+                                   thread_name_prefix="mage-plan") as ex:
+            results = list(ex.map(_plan_one, progs, cfgs))
+    else:
+        with cf.ProcessPoolExecutor(
+                max_workers=len(progs),
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            results = list(ex.map(_plan_one, progs, cfgs))
+    return [r[0] for r in results], [r[1] for r in results]
+
+
+# ---------------------------------------------------------------------------
+# the worker-orchestration core
+# ---------------------------------------------------------------------------
+
+
 @dataclasses.dataclass
 class EngineJob:
     """One engine to run: a memory or virtual program, its driver, device
-    and swap storage (``core.storage``; its owner closes it).  With a
-    ``batch_schedule`` (``exec.batching``) the engine runs the batched path
-    and the driver is a batched one; ``None`` means the scalar loop.
-    ``tag`` labels failures (e.g. ``"party0/worker0"``)."""
+    and swap storage (``core.storage``; its owner closes it).  ``net`` is
+    the engine's party-scoped window onto the transport (NET_*
+    directives).  With a ``batch_schedule`` (``exec.batching``) the
+    engine runs the batched path and the driver is a batched one; an
+    ``overlap_schedule`` (``exec.overlap``) takes precedence and batches
+    its local groups through the same driver; neither means the scalar
+    loop.  ``tag`` labels failures (e.g. ``"party0/worker1"``)."""
     program: Program
     driver: ProtocolDriver
     device: Any
     storage: Any = None
     batch_schedule: Any = None
     tag: Any = None
+    net: PartyView | None = None
+    overlap_schedule: Any = None
 
 
 def run_engines(jobs: Sequence[EngineJob],
                 transport: InprocTransport) -> list[Engine]:
-    """Run one Engine per job, each on its own thread, over ``transport``;
-    return the engines (their ``stats``, and their ``memory`` as the run
-    left it) or re-raise failures.  Each engine holds the transport's
-    baton while it runs (``core.transport``).  Once an engine has failed,
-    the transport closes, so that its peer stops waiting for messages that
-    will never come."""
+    """Run one Engine per job, each on its own thread, over ``transport``
+    (every party's workers and every party link); return the engines
+    (their ``stats``, and their ``memory`` as the run left it) or
+    re-raise failures.  Each engine holds the transport's baton while it
+    runs (``core.transport``).  Once an engine has failed, the transport
+    closes, so that its peers stop waiting for messages that will never
+    come."""
     results: list[Engine | None] = [None] * len(jobs)
     errors: list[tuple[Any, Exception]] = []
 
@@ -75,7 +155,8 @@ def run_engines(jobs: Sequence[EngineJob],
         try:
             with transport.baton:
                 eng = Engine(job.program, job.driver, job.device,
-                             job.storage, job.batch_schedule)
+                             job.storage, job.batch_schedule, net=job.net,
+                             overlap_schedule=job.overlap_schedule)
                 eng.run()
                 results[k] = eng
         except Exception as e:  # surfaced below

@@ -9,8 +9,8 @@ synchronisation; the outputs are two views of one allocation); on a CPU
 tensor it runs the plain version in ``ref.py``; on anything else it
 raises.  The counters count kernel launches only, so a run can show that
 its ANDs went through the kernels.  They are plain integers without a
-lock: a GC job's engines take turns on the transport's baton, and each
-kind is counted by one party's engine.
+lock: a GC job's engines (every worker of both parties) take turns on
+the transport's baton, so one engine at a time counts.
 """
 
 from __future__ import annotations

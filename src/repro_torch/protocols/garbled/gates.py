@@ -36,9 +36,12 @@ class GateCounts:
 
 
 class PartyChannel:
-    """Garbler→evaluator protocol stream over one in-process link.
+    """Garbler→evaluator protocol stream over one link of the transport.
 
-    Each message kind (garbled tables, constants, garbler/evaluator inputs
+    ``src`` and ``dst`` are global ranks: in a job of p workers per party,
+    garbler worker k (rank k) streams to evaluator worker k (rank p + k),
+    one link per worker pair (the one-to-one inter-party topology of
+    Fig. 3).  Each message kind (garbled tables, constants, garbler/evaluator inputs
     via OT, output decode bits) maps to a fixed tag; both parties traverse
     the same bytecode in lockstep, so per-kind FIFO delivery is exactly the
     ordering the protocol needs.  The link's pending set is bounded at
@@ -66,7 +69,10 @@ class PartyChannel:
     def send(self, kind: str, t: torch.Tensor) -> None:
         if self._digest is not None and kind == "tab":
             self._digest.update(t.cpu().numpy().tobytes())
-        self.transport.send(self.src, self.dst, self.TAGS[kind], t)
+        # protocol messages are freshly built and never mutated by the
+        # sender afterwards: skip the snapshot on the hot path
+        self.transport.send(self.src, self.dst, self.TAGS[kind], t,
+                            copy=False)
 
     def recv(self, kind: str) -> torch.Tensor:
         try:

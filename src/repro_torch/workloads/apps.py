@@ -1,6 +1,8 @@
 """§8.8 applications: password-reuse detection (GC) and computational PIR
 (CKKS, the Kushilevitz–Ostrovsky sqrt scheme) — the port's copy of
-``repro.workloads.apps``, one worker per party.
+``repro.workloads.apps``.  pir splits its columns between the workers;
+passreuse runs on one worker per party (its merge asserts so, as the JAX
+package's does).
 
 As for the port's other CKKS workloads, pir draws its database, query and
 oracle at the slot count of the parameters the job runs at
@@ -18,8 +20,7 @@ from ..core.workers import ProgramOptions
 from ..protocols.ckks.driver import Batch, Plain
 from ..protocols.ckks.params import CkksParams
 from ..protocols.garbled.dsl import Integer, Party
-from .base import CKKS_PAGE_SHIFT, GC_PAGE_SHIFT, Workload, register, \
-    single_worker
+from .base import CKKS_PAGE_SHIFT, GC_PAGE_SHIFT, Workload, register
 from .ckks_workloads import PARAMS, _params, _provider
 from .gc_library import GC_CHUNK, RECORD_W, bitonic_merge_sorted_chunks
 from .gc_workloads import CONST_TAG, public_input
@@ -38,7 +39,6 @@ MATCH_KEY_W = 64          # uid (32b) + password hash (32b)
 
 
 def _passreuse_build(opts: ProgramOptions) -> None:
-    single_worker(opts)
     n = opts.problem_size
     a = [Integer(RECORD_W, GC_CHUNK).mark_input(Party.Garbler, A_TAGS + i)
          for i in range(n // GC_CHUNK)]
@@ -126,15 +126,20 @@ def _pir_grid(n: int) -> tuple[int, int]:
 
 
 def _pir_build(opts: ProgramOptions) -> None:
-    single_worker(opts)
+    """Each worker scans its share of the columns when the workers divide
+    them, and every column otherwise (as the JAX package does)."""
     p = _params(opts)
     r, c = _pir_grid(opts.problem_size)
+    k0, cols = 0, c
+    if opts.num_workers > 1 and c % opts.num_workers == 0:
+        cols = c // opts.num_workers
+        k0 = opts.worker * cols
     # phase 1: materialize the (plaintext-encoded) database + query
     db = {(i, k): Plain(p).mark_input(A_TAGS + i * c + k)
-          for i in range(r) for k in range(c)}
+          for i in range(r) for k in range(k0, k0 + cols)}
     q = [Batch(p).mark_input(Q_TAGS + i) for i in range(r)]
     # phase 2: linear scan — one column accumulator per output
-    for k in range(c):
+    for k in range(k0, k0 + cols):
         acc = q[0].mul_plain(db[(0, k)])
         for i in range(1, r):
             acc = acc + q[i].mul_plain(db[(i, k)])

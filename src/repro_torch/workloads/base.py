@@ -10,8 +10,8 @@ memory pressure is real.
 Registered: the five garbled-circuit workloads, the five CKKS workloads
 and the two §8.8 applications (passreuse, pir).  A CKKS workload's
 ``inputs`` and ``oracle`` also take ``ckks_params``, the parameters the job
-runs at.  Every build runs one worker per party: multi-worker jobs are
-ROADMAP Queue 1 item 3.
+runs at.  A build traces one program per worker (``ProgramOptions``'
+``worker`` and ``num_workers``); passreuse takes one worker only.
 """
 
 from __future__ import annotations
@@ -55,13 +55,6 @@ REGISTRY: dict[str, Workload] = {}
 def register(w: Workload) -> Workload:
     REGISTRY[w.name] = w
     return w
-
-
-def single_worker(opts: ProgramOptions) -> None:
-    """Refuse a multi-worker trace, which the port does not run yet."""
-    if opts.num_workers != 1:
-        raise NotImplementedError(
-            "multi-worker jobs are not ported yet (ROADMAP Queue 1 item 3)")
 
 
 def get(name: str) -> Workload:

@@ -12,18 +12,19 @@ One difference from the reference: inputs and the oracle are drawn at the
 slot count of the params the job runs at (``ckks_params``), where the
 reference always draws ``PARAMS.slots`` = 64 values and so can only run at
 its default ring of 128.  At ring 128 both draw the same values.
-Multi-worker jobs (the partial sums gathered over NET_* directives) wait
-for a later slice.
+With p workers, each takes its share of the elements (rsum, rstats) or of
+the rows (rmvmul, *_rmatmul); rsum's and rstats' partial sums are
+gathered on worker 0 over NET_* directives (``_gather_add``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..core.workers import ProgramOptions
+from ..core.workers import ProgramOptions, recv_into, send_value
 from ..protocols.ckks.driver import Batch, Plain
 from ..protocols.ckks.params import CkksParams
-from .base import CKKS_PAGE_SHIFT, Workload, register, single_worker
+from .base import CKKS_PAGE_SHIFT, Workload, register
 
 X_TAGS = 0
 Y_TAGS = 1 << 20
@@ -57,15 +58,33 @@ def _provider(data_by_base: dict[int, np.ndarray]):
 # ---------------------------------------------------------------------------
 
 
+def _gather_add(acc: Batch, opts: ProgramOptions, p: CkksParams,
+                tag0: int) -> Batch | None:
+    """Combine per-worker partials on worker 0 (network directives)."""
+    if opts.num_workers == 1:
+        return acc
+    if opts.worker != 0:
+        send_value(acc, 0, tag=tag0 + opts.worker)
+        return None
+    for src in range(1, opts.num_workers):
+        other = Batch(p, acc.level, acc.ncomp, acc.scale)
+        recv_into(other, src, tag0 + src)
+        acc = acc + other
+    return acc
+
+
 def _rsum_build(opts: ProgramOptions) -> None:
-    single_worker(opts)
     p = _params(opts)
     n = opts.problem_size
-    cts = [Batch(p).mark_input(X_TAGS + i) for i in range(n)]
+    per = n // opts.num_workers
+    base = opts.worker * per
+    cts = [Batch(p).mark_input(X_TAGS + base + i) for i in range(per)]
     acc = cts[0] + cts[1]
     for c in cts[2:]:
         acc = acc + c
-    acc.mark_output(OUT_TAGS)
+    acc = _gather_add(acc, opts, p, 1 << 16)
+    if acc is not None:
+        acc.mark_output(OUT_TAGS)
 
 
 def _rsum_inputs(n: int, worker: int, p: int,
@@ -88,17 +107,22 @@ register(Workload("rsum", "ckks", _rsum_build, _rsum_inputs, _rsum_oracle,
 
 
 def _rstats_build(opts: ProgramOptions) -> None:
-    single_worker(opts)
     p = _params(opts)
     n = opts.problem_size
+    per = n // opts.num_workers
+    base = opts.worker * per
     inv_n = Plain(p).mark_input(C_TAGS)          # encodes 1/n
-    cts = [Batch(p).mark_input(X_TAGS + i) for i in range(n)]
+    cts = [Batch(p).mark_input(X_TAGS + base + i) for i in range(per)]
     s = cts[0] + cts[1]
     for c in cts[2:]:
         s = s + c
     sq = cts[0].mul_norelin(cts[0])
     for c in cts[1:]:
         sq = sq + c.mul_norelin(c)
+    s = _gather_add(s, opts, p, 1 << 16)
+    sq = _gather_add(sq, opts, p, 1 << 17)
+    if s is None:
+        return
     sumsq = sq.relin()                            # level 1
     mean = s.mul_plain(inv_n)                     # level 1
     ex2 = sumsq.mul_plain(inv_n)                  # level 0
@@ -136,11 +160,12 @@ def _rmv_tag(i: int, j: int, n: int) -> int:
 
 
 def _rmvmul_build(opts: ProgramOptions) -> None:
-    single_worker(opts)
     p = _params(opts)
     n = opts.problem_size
+    rows = n // opts.num_workers
+    r0 = opts.worker * rows
     vec = [Batch(p).mark_input(Y_TAGS + j) for j in range(n)]
-    for i in range(n):
+    for i in range(r0, r0 + rows):
         row = [Batch(p).mark_input(_rmv_tag(i, j, n)) for j in range(n)]
         acc = row[0].mul_norelin(vec[0])
         for j in range(1, n):
@@ -205,20 +230,21 @@ def _matmul_oracle(n: int, ckks_params: CkksParams = PARAMS
 def _n_rmatmul_build(opts: ProgramOptions) -> None:
     """Naive i-j-k loop: the whole A row band, B, and C accumulators are
     repeatedly rescanned — the memory-hostile ordering."""
-    single_worker(opts)
     p = _params(opts)
     n = opts.problem_size
+    rows = n // opts.num_workers
+    r0 = opts.worker * rows
     A = {(i, j): Batch(p).mark_input(X_TAGS + i * n + j)
-         for i in range(n) for j in range(n)}
+         for i in range(r0, r0 + rows) for j in range(n)}
     B = {(j, k): Batch(p).mark_input(Y_TAGS + j * n + k)
          for j in range(n) for k in range(n)}
     C: dict[tuple[int, int], Batch] = {}
-    for i in range(n):
+    for i in range(r0, r0 + rows):
         for j in range(n):
             for k in range(n):
                 t = A[(i, j)].mul_norelin(B[(j, k)])
                 C[(i, k)] = t if j == 0 else C[(i, k)] + t
-    for i in range(n):
+    for i in range(r0, r0 + rows):
         for k in range(n):
             C[(i, k)].relin().mark_output(OUT_TAGS + i * n + k)
 
@@ -226,24 +252,25 @@ def _n_rmatmul_build(opts: ProgramOptions) -> None:
 def _t_rmatmul_build(opts: ProgramOptions) -> None:
     """Tiled i-k-j loop with T x T tiles: each B tile is reused across a
     whole A row-tile before moving on (the memory-friendly ordering)."""
-    single_worker(opts)
     p = _params(opts)
     n = opts.problem_size
     T = min(4, n)
+    rows = n // opts.num_workers
+    r0 = opts.worker * rows
     A = {(i, j): Batch(p).mark_input(X_TAGS + i * n + j)
-         for i in range(n) for j in range(n)}
+         for i in range(r0, r0 + rows) for j in range(n)}
     B = {(j, k): Batch(p).mark_input(Y_TAGS + j * n + k)
          for j in range(n) for k in range(n)}
     C: dict[tuple[int, int], Batch] = {}
-    for i0 in range(0, n, T):
+    for i0 in range(r0, r0 + rows, T):
         for k0 in range(0, n, T):
             for j0 in range(0, n, T):
-                for i in range(i0, min(i0 + T, n)):
+                for i in range(i0, min(i0 + T, r0 + rows)):
                     for k in range(k0, min(k0 + T, n)):
                         for j in range(j0, min(j0 + T, n)):
                             t = A[(i, j)].mul_norelin(B[(j, k)])
                             C[(i, k)] = t if j == 0 else C[(i, k)] + t
-            for i in range(i0, min(i0 + T, n)):
+            for i in range(i0, min(i0 + T, r0 + rows)):
                 for k in range(k0, min(k0 + T, n)):
                     C.pop((i, k)).relin().mark_output(OUT_TAGS + i * n + k)
 

@@ -1,6 +1,9 @@
 """The five garbled-circuit workloads (§8.1.1): merge, sort, ljoin, mvmul,
-binfclayer — the port's copy of ``repro.workloads.gc_workloads``, one
-worker per party, written in the Integer DSL against the chunk library.
+binfclayer — the port's copy of ``repro.workloads.gc_workloads``,
+written in the Integer DSL against the chunk library.  With p workers
+per party, merge and sort run the distributed bitonic network (NET_*
+exchanges between workers), and ljoin, mvmul and binfclayer split their
+rows between the workers.
 
 Problem sizes follow the paper's conventions: n records per party for
 merge/sort/ljoin (128-bit records, 32-bit keys), n = matrix side for
@@ -14,10 +17,11 @@ import numpy as np
 from ..core.bytecode import Op
 from ..core.workers import ProgramOptions
 from ..protocols.garbled.dsl import Integer, Party
-from .base import GC_PAGE_SHIFT, Workload, register, single_worker
+from .base import GC_PAGE_SHIFT, Workload, register
 from .gc_library import (GC_CHUNK, KEY_W, RECORD_W,
                          bitonic_merge_sorted_chunks, bitonic_sort_chunks,
-                         input_chunks, output_chunks)
+                         distributed_merge_chunks, input_chunks,
+                         output_chunks)
 
 A_TAGS = 0
 B_TAGS = 1 << 20
@@ -53,12 +57,31 @@ def _chunk_provider(data_by_base: dict[int, np.ndarray], chunk: int):
 
 
 def _merge_build(opts: ProgramOptions) -> None:
-    single_worker(opts)
     n = opts.problem_size
-    a = input_chunks(n, Party.Garbler, A_TAGS)
-    b = input_chunks(n, Party.Evaluator, B_TAGS)
-    out = bitonic_merge_sorted_chunks(a, b, opts)
-    output_chunks(out, OUT_TAGS)
+    p = opts.num_workers
+    if p == 1:
+        a = input_chunks(n, Party.Garbler, A_TAGS)
+        b = input_chunks(n, Party.Evaluator, B_TAGS)
+        out = bitonic_merge_sorted_chunks(a, b, opts)
+        output_chunks(out, OUT_TAGS)
+        return
+    # distributed: worker w holds its block of [A asc | B desc]
+    assert p % 2 == 0 and (2 * n) % (p * GC_CHUNK) == 0
+    mc = (2 * n) // (p * GC_CHUNK)
+    w = opts.worker
+    chunks = []
+    for c in range(mc):
+        g = w * mc + c  # global chunk index in the combined sequence
+        if g < n // GC_CHUNK:
+            chunks.append(Integer(RECORD_W, GC_CHUNK)
+                          .mark_input(Party.Garbler, A_TAGS + g))
+        else:
+            bidx = (2 * n // GC_CHUNK - 1) - g   # reversed chunk order
+            v = Integer(RECORD_W, GC_CHUNK).mark_input(Party.Evaluator,
+                                                       B_TAGS + bidx)
+            chunks.append(v.reverse())
+    out = distributed_merge_chunks(chunks, opts)
+    output_chunks(out, OUT_TAGS + w * mc)
 
 
 def _merge_inputs(n: int, worker: int, p: int):
@@ -85,9 +108,15 @@ register(Workload("merge", "gc", _merge_build, _merge_inputs, _merge_oracle,
 
 
 def _sort_build(opts: ProgramOptions) -> None:
-    single_worker(opts)
-    chunks = input_chunks(opts.problem_size, Party.Garbler, A_TAGS)
-    output_chunks(bitonic_sort_chunks(chunks, opts), OUT_TAGS)
+    n = opts.problem_size
+    p = opts.num_workers
+    per = n // p
+    base = opts.worker * (per // GC_CHUNK)
+    chunks = [Integer(RECORD_W, GC_CHUNK).mark_input(Party.Garbler,
+                                                     A_TAGS + base + i)
+              for i in range(per // GC_CHUNK)]
+    out = bitonic_sort_chunks(chunks, opts)
+    output_chunks(out, OUT_TAGS + base)
 
 
 def _sort_inputs(n: int, worker: int, p: int):
@@ -114,10 +143,14 @@ LJ_B_CELL = 4
 
 
 def _ljoin_build(opts: ProgramOptions) -> None:
-    single_worker(opts)
     n = opts.problem_size
-    a = input_chunks(n, Party.Garbler, A_TAGS, chunk=LJ_A_CELL)
+    p = opts.num_workers
+    per = n // p                      # A rows per worker; B replicated
+    a = input_chunks(per, Party.Garbler,
+                     A_TAGS + opts.worker * (per // LJ_A_CELL),
+                     chunk=LJ_A_CELL)
     b = input_chunks(n, Party.Evaluator, B_TAGS, chunk=LJ_B_CELL)
+    base = OUT_TAGS + opts.worker * (per // LJ_A_CELL) * (n // LJ_B_CELL)
     # §8.1.3 three-phase discipline: the join output is MATERIALIZED in
     # memory (it is what exceeds the budget), then written out in phase 3.
     # (Loops, not a comprehension: ``ca`` and ``cb`` stay bound to the last
@@ -128,7 +161,7 @@ def _ljoin_build(opts: ProgramOptions) -> None:
         for cb in b:
             cells.append(ca.pair_join(cb, KEY_W))
     for t, cell in enumerate(cells):
-        cell.mark_output(OUT_TAGS + t)
+        cell.mark_output(base + t)
 
 
 def _ljoin_data(n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -194,22 +227,23 @@ def public_input(value: Integer) -> Integer:
 
 
 def _mvmul_build(opts: ProgramOptions) -> None:
-    single_worker(opts)
     n = opts.problem_size
+    rows = n // opts.num_workers
+    row_base = opts.worker * (rows // MV_NR)
     vec = [Integer(8, MV_NJ).mark_input(Party.Evaluator, B_TAGS + j)
            for j in range(n // MV_NJ)]
     mat = [[Integer(8, MV_NR * MV_NJ).mark_input(
-        Party.Garbler, A_TAGS + r * (n // MV_NJ) + j)
-        for j in range(n // MV_NJ)] for r in range(n // MV_NR)]
+        Party.Garbler, A_TAGS + (row_base + r) * (n // MV_NJ) + j)
+        for j in range(n // MV_NJ)] for r in range(rows // MV_NR)]
     zero = public_input(Integer(32, MV_NR))
     outs = []
-    for r in range(n // MV_NR):
+    for r in range(rows // MV_NR):
         acc = zero
         for j in range(n // MV_NJ):
             acc = mat[r][j].mac8(vec[j], acc)
         outs.append(acc)
     for r, acc in enumerate(outs):  # phase 3
-        acc.mark_output(OUT_TAGS + r)
+        acc.mark_output(OUT_TAGS + row_base + r)
 
 
 def _mvmul_data(n: int):
@@ -256,18 +290,19 @@ BF_NJ = 128
 def _binfc_build(opts: ProgramOptions) -> None:
     """out[r] = sign(popcount_j xnor(M[r, :], v)) for n == BF_NJ; wider
     layers combine the per-block signs by XOR (block voting), as the JAX
-    package does."""
-    single_worker(opts)
+    package does.  Each worker takes ``n / p`` rows."""
     n = opts.problem_size
+    rows = n // opts.num_workers
+    row_base = opts.worker * (rows // BF_NR)
     assert n % BF_NJ == 0
     vec = [Integer(1, BF_NJ).mark_input(Party.Evaluator, B_TAGS + j)
            for j in range(n // BF_NJ)]
     # phase 1: the whole binary matrix is materialized (§8.1.3)
     mat = {(r, j): Integer(1, BF_NR * BF_NJ).mark_input(
-        Party.Garbler, A_TAGS + r * (n // BF_NJ) + j)
-        for r in range(n // BF_NR) for j in range(n // BF_NJ)}
+        Party.Garbler, A_TAGS + (row_base + r) * (n // BF_NJ) + j)
+        for r in range(rows // BF_NR) for j in range(n // BF_NJ)}
     results = []
-    for r in range(n // BF_NR):
+    for r in range(rows // BF_NR):
         outs = [mat[(r, j)].xnor_pop_sign(vec[j], BF_NR)
                 for j in range(n // BF_NJ)]
         acc = outs[0]
@@ -275,7 +310,7 @@ def _binfc_build(opts: ProgramOptions) -> None:
             acc = acc ^ o
         results.append(acc)
     for r, out in enumerate(results):  # phase 3
-        out.mark_output(OUT_TAGS + r)
+        out.mark_output(OUT_TAGS + row_base + r)
 
 
 def _binfc_data(n: int):

@@ -2,8 +2,7 @@
 CKKS execution, bounded-memory execution — the port's copy of
 ``repro.workloads.runner``, thin wrappers over :class:`repro_torch.api.
 Session`.  A ``cfg`` of ``None`` runs unbounded; ``device`` is the card
-unless the caller passes ``"cpu"``.  One worker per party: multi-worker
-jobs are ROADMAP Queue 1 item 3.
+unless the caller passes ``"cpu"``; ``num_workers`` workers per party.
 """
 
 from __future__ import annotations
@@ -19,10 +18,8 @@ from .base import Workload
 
 def _session(w: Workload, n: int, num_workers: int, cfg: PlanConfig | None,
              use_memmap: bool, device) -> Session:
-    if num_workers != 1:
-        raise NotImplementedError(
-            "multi-worker jobs are not ported yet (ROADMAP Queue 1 item 3)")
-    kw = dict(n=n, storage="memmap" if use_memmap else "ram")
+    kw = dict(n=n, num_workers=num_workers,
+              storage="memmap" if use_memmap else "ram")
     if cfg is None:
         kw["plan_mode"] = "unbounded"
     else:
@@ -42,7 +39,8 @@ def run_gc_plaintext(w: Workload, n: int, num_workers: int = 1,
 def run_gc_real(w: Workload, n: int, num_workers: int = 1,
                 cfg: PlanConfig | None = None, use_memmap: bool = False,
                 device=None) -> dict[int, np.ndarray]:
-    """Both parties: a garbler and an evaluator engine over one channel."""
+    """Both parties, all workers: 2p engines, one party channel per worker
+    pair (the one-to-one inter-party topology of Fig. 3)."""
     return _session(w, n, num_workers, cfg, use_memmap,
                     device).execute(real=True)
 

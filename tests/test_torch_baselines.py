@@ -368,6 +368,12 @@ def test_jobspec_rejects(bad):
     (dict(plan_mode="streaming"), "item 6"),
     (dict(exec_backend="overlap"), "item 4")])
 def test_jobspec_not_ported_yet(knob, item):
+    """The streaming planner still raises, naming its ROADMAP item; the
+    overlap backend (item 4) is ported and accepted."""
+    if item == "item 4":
+        spec = JobSpec("merge", memory_budget=5, num_workers=4, **knob)
+        assert (spec.exec_backend, spec.num_workers) == ("overlap", 4)
+        return
     with pytest.raises(NotImplementedError, match=item):
         JobSpec("merge", memory_budget=5, **knob)
 

@@ -4,8 +4,9 @@ and the scalar loop (mvmul, passreuse and sort have files of their own,
 for time); every GC workload through the plaintext oracle driver (outputs
 and the final engine memory, bit for bit); a workload that emits every
 batched GC op, in the clear at 64 bits with bit 63 set and two-party at 16
-bits; the reference's ljoin plan run in the port; the runner; and the
-refusals that remain (multi-worker jobs)."""
+bits; the reference's ljoin plan run in the port; the runner (also at two
+workers); and every workload's two-worker traces against the JAX
+package's (passreuse asserts one worker in both)."""
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from repro.protocols.garbled.dsl import Integer as RefInteger, \
 from repro.workloads.base import Workload as RefWorkload
 from repro_torch import __main__ as cli
 from repro_torch.api import JobSpec, Session
-from repro_torch.core.bytecode import Op
+from repro_torch.core.bytecode import Op, encode_chunk
 from repro_torch.core.planner import PlanConfig
 from repro_torch.interop import program_from_records
 from repro_torch.protocols.garbled.dsl import Integer, Party
@@ -255,14 +256,33 @@ def test_runner_runs_each_mode():
     pir = get("pir")
     out = runner.run(pir, 16, params=PARAMS, device="cpu")
     runner.check_against_oracle(pir, 16, out)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        runner.run(w, 128, num_workers=2, device="cpu")
+    # two workers a party, each taking half the rows
+    out = runner.run(w, 128, num_workers=2, device="cpu")
+    runner.check_against_oracle(w, 128, out)
+    assert same_outputs(out, want)
 
 
 @pytest.mark.parametrize("wl", GC_WORKLOADS + ["pir"])
 def test_multi_worker_traces_name_their_roadmap_item(wl):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        get(wl).trace(job(wl)["n"], num_workers=2)
+    """Two workers a party trace what the JAX package traces, worker for
+    worker, record for record; passreuse's merge asserts a single worker
+    in both packages."""
+    n = job(wl)["n"]
+    if wl == "passreuse":
+        with pytest.raises(AssertionError):
+            get(wl).trace(n, num_workers=2)
+        with pytest.raises(AssertionError):
+            RefSession(RefJobSpec(workload=wl, n=n, num_workers=2,
+                                  plan_mode="unbounded")).trace()
+        return
+    ref = RefSession(RefJobSpec(workload=wl, n=n, num_workers=2,
+                                plan_mode="unbounded")).trace()
+    port = get(wl).trace(n, num_workers=2)
+    assert len(port) == len(ref) == 2
+    for pv, rv in zip(port, ref):
+        assert (pv.worker, pv.num_workers, pv.vspace_slots) == \
+            (rv.worker, rv.num_workers, rv.vspace_slots)
+        assert np.array_equal(encode_chunk(pv.instrs), ref_encode(rv.instrs))
 
 
 def test_cli_runs_new_workloads_in_the_clear(capsys):

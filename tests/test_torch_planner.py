@@ -1,6 +1,7 @@
-"""The port's trace, plan and batch schedule against the JAX package's, and
-the reference planner's own memory program run through the port's engine.
-Records are compared bitwise."""
+"""The port's traces, plans, batch schedules and overlap schedules against
+the JAX package's, for every worker of one- and multi-worker jobs, and the
+reference planner's own memory programs run through the port's engine.
+Records and schedule arrays are compared bitwise."""
 
 import dataclasses
 
@@ -10,9 +11,11 @@ import pytest
 from repro.api import JobSpec as RefJobSpec, Session as RefSession
 from repro.core.bytecode import encode_chunk as ref_encode
 from repro.exec.batching import build_batch_schedule as ref_batch_schedule
+from repro.exec.overlap import build_overlap_schedule as ref_overlap_schedule
 from repro_torch.api import JobSpec, Session
 from repro_torch.core.bytecode import decode_chunk, encode_chunk
 from repro_torch.exec.batching import build_batch_schedule
+from repro_torch.exec.overlap import build_overlap_schedule
 from repro_torch.interop import program_from_records
 
 #: (n, budget, prefetch, lookahead): a working-set fraction and a frame count
@@ -28,18 +31,33 @@ WORKLOAD_CASES = [
     ("ljoin", 16, 5, 1, 10_000), ("mvmul", 32, 4, 1, 10_000),
     ("binfclayer", 128, 4, 1, 10_000), ("sort", 64, 5, 1, 10_000),
     ("passreuse", 64, 5, 1, 10_000), ("pir", 64, 4, 1, 10_000)]
-ALL_CASES = [pytest.param("merge", *c, id="-".join(map(str, c)))
-             for c in CASES] + [pytest.param(*c, id="-".join(map(str, c)))
-                                for c in WORKLOAD_CASES]
+#: multi-worker jobs (the JAX package's multi-worker test sizes and the
+#: apps), each worker planned at frames that make it swap where its
+#: working set allows, and merge at Fig. 10's tiny size, fraction and
+#: prefetch (benchmarks/fig10_parallel.py:29-31), as
+#: (workload, n, budget, prefetch, lookahead, workers)
+WORKER_CASES = [
+    ("merge", 256, 6, 1, 10_000, 2), ("merge", 256, 5, 1, 10_000, 4),
+    ("merge", 2048, 0.4, 16, 10_000, 4), ("sort", 256, 5, 1, 10_000, 4),
+    ("ljoin", 32, 8, 1, 10_000, 2), ("mvmul", 32, 4, 1, 10_000, 2),
+    ("binfclayer", 128, 4, 1, 10_000, 2), ("rsum", 32, 3, 1, 10_000, 4),
+    ("rstats", 16, 4, 1, 10_000, 2), ("rmvmul", 4, 3, 1, 10_000, 2),
+    ("t_rmatmul", 4, 4, 1, 10_000, 2), ("n_rmatmul", 2, 3, 1, 10_000, 2),
+    ("pir", 16, 4, 1, 10_000, 2)]
+ALL_CASES = [pytest.param("merge", *c, 1, id="-".join(map(str, c)))
+             for c in CASES] + [pytest.param(*c, 1, id="-".join(map(str, c)))
+                                for c in WORKLOAD_CASES] + \
+    [pytest.param(*c, id="-".join(map(str, c[:5])) + f"-p{c[5]}")
+     for c in WORKER_CASES]
 
 
-def _sessions(n, budget, prefetch, lookahead, wl="merge"):
+def _sessions(n, budget, prefetch, lookahead, wl="merge", workers=1):
     ref = RefSession(RefJobSpec(workload=wl, n=n, memory_budget=budget,
                                 lookahead=lookahead, prefetch_pages=prefetch,
-                                plan_core="scalar"))
+                                num_workers=workers, plan_core="scalar"))
     port = Session(JobSpec(wl, n=n, memory_budget=budget,
-                           lookahead=lookahead, prefetch_pages=prefetch),
-                   device="cpu")
+                           lookahead=lookahead, prefetch_pages=prefetch,
+                           num_workers=workers), device="cpu")
     return ref, port
 
 
@@ -49,35 +67,52 @@ def _header(p) -> dict:
                                         "meta")}
 
 
-@pytest.mark.parametrize("wl,n,budget,prefetch,lookahead", ALL_CASES)
+@pytest.mark.parametrize("wl,n,budget,prefetch,lookahead,workers",
+                         ALL_CASES)
 def test_trace_plan_schedule_match_reference(wl, n, budget, prefetch,
-                                             lookahead):
-    ref, port = _sessions(n, budget, prefetch, lookahead, wl)
-    rv, pv = ref.trace()[0], port.trace()[0]
-    assert np.array_equal(encode_chunk(pv.instrs), ref_encode(rv.instrs))
-    assert pv.vspace_slots == rv.vspace_slots
-    assert port.working_set() == ref.working_set(0)
+                                             lookahead, workers):
+    """Per worker: the trace, the working set, the plan config and memory
+    program, the plan reports, the batch schedule and the overlap
+    schedule."""
+    ref, port = _sessions(n, budget, prefetch, lookahead, wl, workers)
+    assert len(port.trace()) == len(ref.trace()) == workers
+    assert len(port.plan()) == len(ref.plan()) == workers
+    for w in range(workers):
+        rv, pv = ref.trace()[w], port.trace()[w]
+        assert (pv.worker, pv.num_workers) == (rv.worker, rv.num_workers)
+        assert np.array_equal(encode_chunk(pv.instrs),
+                              ref_encode(rv.instrs))
+        assert pv.vspace_slots == rv.vspace_slots
+        assert port.working_set(w) == ref.working_set(w)
 
-    rm, pm = ref.plan()[0], port.plan()[0]
-    rcfg = ref._cfgs[0]
-    assert (port.config.num_frames, port.config.prefetch_pages,
-            port.config.lookahead) == (rcfg.num_frames, rcfg.prefetch_pages,
-                                       rcfg.lookahead)
-    assert np.array_equal(encode_chunk(pm.instrs), ref_encode(rm.instrs))
-    for k in ("phase", "num_frames", "prefetch_slots", "vspace_slots"):
-        assert getattr(pm, k) == getattr(rm, k), k
-    rrep, prep = ref.plan_reports[0], port.plan_reports[0]
-    assert dataclasses.asdict(prep.replacement) == \
-        dataclasses.asdict(rrep.replacement)
-    assert dataclasses.asdict(prep.schedule) == \
-        dataclasses.asdict(rrep.schedule)
-    if wl == "merge":
-        assert prep.replacement.swap_ins > 0
+        rm, pm = ref.plan()[w], port.plan()[w]
+        rcfg, pcfg = ref._cfgs[w], port.configs[w]
+        assert (pcfg.num_frames, pcfg.prefetch_pages, pcfg.lookahead) == \
+            (rcfg.num_frames, rcfg.prefetch_pages, rcfg.lookahead)
+        assert np.array_equal(encode_chunk(pm.instrs), ref_encode(rm.instrs))
+        for k in ("phase", "num_frames", "prefetch_slots", "vspace_slots",
+                  "worker", "num_workers"):
+            assert getattr(pm, k) == getattr(rm, k), k
+        rrep, prep = ref.plan_reports[w], port.plan_reports[w]
+        assert dataclasses.asdict(prep.replacement) == \
+            dataclasses.asdict(rrep.replacement)
+        assert dataclasses.asdict(prep.schedule) == \
+            dataclasses.asdict(rrep.schedule)
+        if wl == "merge":
+            assert prep.replacement.swap_ins > 0
 
-    rs, ps = ref_batch_schedule(rm), build_batch_schedule(pm)
-    assert (ps.chunk_instrs, ps.n_records) == (rs.chunk_instrs, rs.n_records)
-    for f in ("order", "bounds", "group_op", "chunk_groups"):
-        assert np.array_equal(getattr(ps, f), getattr(rs, f)), f
+        rs, ps = ref_batch_schedule(rm), build_batch_schedule(pm)
+        assert (ps.chunk_instrs, ps.n_records) == \
+            (rs.chunk_instrs, rs.n_records)
+        for f in ("order", "bounds", "group_op", "chunk_groups"):
+            assert np.array_equal(getattr(ps, f), getattr(rs, f)), f
+        ro, po = ref_overlap_schedule(rm), build_overlap_schedule(pm)
+        assert (po.chunk_instrs, po.n_records) == \
+            (ro.chunk_instrs, ro.n_records)
+        for f in ("order", "bounds", "group_kind", "group_op",
+                  "chunk_groups"):
+            assert np.array_equal(getattr(po, f), getattr(ro, f)), f
+        assert po.stats() == ro.stats()
 
 
 def test_record_codec_round_trip():
@@ -106,3 +141,27 @@ def test_reference_plan_runs_in_port_engine():
     want = ref.workload.oracle(32)
     assert sorted(out) == sorted(want)
     assert all(np.array_equal(out[k], want[k]) for k in want)
+
+
+def test_reference_multi_worker_plan_runs_in_port_engine():
+    """The JAX package's two workers' memory programs, carried over as
+    records, run two-party in the port on the overlap loop (the NET
+    exchanges between the workers included) and give the oracle's
+    outputs."""
+    spec = dict(n=64, memory_budget=5, lookahead=10_000, prefetch_pages=1,
+                num_workers=2)
+    ref = RefSession(RefJobSpec(workload="merge", **spec))
+    progs = [program_from_records(ref_encode(rm.instrs),
+                                  dict(_header(rm), worker=rm.worker,
+                                       num_workers=rm.num_workers))
+             for rm in ref.plan()]
+    assert [(p.worker, p.num_workers) for p in progs] == [(0, 2), (1, 2)]
+    port = Session(JobSpec("merge", exec_backend="overlap", **spec),
+                   device="cpu")
+    port.adopt_plan(progs)
+    out = port.execute(real=True, check=True)
+    assert len(out) == 4
+    assert all(e.swap_ins > 0 and e.net_messages > 0
+               for e in port.engine_stats)
+    with pytest.raises(ValueError, match="one per worker"):
+        port.adopt_plan(progs[:1])
