@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 It drives the port's three paths: the planned two-party garbled merge
-(GC) and the other GC workloads and apps, the planned CKKS jobs (and
-both kinds of job at four workers a party) and serving qwen2-1.5b (and,
+(GC) and the other GC workloads and apps, the planned CKKS jobs (both
+kinds of job at four workers a party, in one process and as a fleet of
+one process a rank from saved plans) and serving qwen2-1.5b (and,
 briefly, stablelm-3b) with the paged decode.
 TF32 stays off for the whole run: the plain versions' float32 products run
 in full float32.  Phases, each raising on failure:
@@ -85,9 +86,9 @@ in full float32.  Phases, each raising on failure:
 11. workers      multi-worker jobs and the overlap backend at Fig. 10's
                  four workers a party, each checked against its oracle
                  beside the one-worker job of the same n: two-party merge
-                 n=16384 unbounded on the batched and the overlap loop,
-                 n=2048 planned at 0.4 with 16 prefetch pages (batched)
-                 and unbounded; rsum n=256 and rmvmul n=24 at ring 1024
+                 n=16384 unbounded (batched), n=2048 planned at 0.4 with
+                 16 prefetch pages (batched) and unbounded on the batched
+                 and the overlap loop; rsum n=256 and rmvmul n=24 at ring 1024
                  planned (lookahead 100, 16 prefetch pages) and unbounded
                  on both loops; NET messages and bytes per worker link,
                  posted and in-flight receives, swaps; every AND gate and
@@ -96,16 +97,31 @@ in full float32.  Phases, each raising on failure:
                  table stream of each party link) and rsum n=32 at four
                  (every engine's final memory) on both loops, the CPU
                  runs in a process of their own meanwhile;
-12. record       each kernel timed at each path's launch sizes, beside
+12. fleet        saved plans and one process a rank, through the port's
+                 CLI (``plan``, then ``fabric``: a ``run JOBDIR --worker
+                 K`` process a rank over localhost TCP, each on the card
+                 and checked, every AND gate and NTT of each rank through
+                 the kernels): the parity phase's planned merge n=256 as a
+                 garbler and an evaluator process (outputs, AND count and
+                 the garbler's table digest equal to the in-process card
+                 run); the unbounded merge n=4096 as two processes (the
+                 party link's bytes over TCP), equal to the same job run
+                 in this process; the unbounded merge n=2048
+                 at four workers a party as eight processes and at one as
+                 two, beside the workers phase's in-process runs of the
+                 same jobs; rsum n=256 at four
+                 workers, ring 1024, as four processes (NTT launches equal
+                 to the in-process run's);
+13. record       each kernel timed at each path's launch sizes, beside
                  its bound, its plain version and (the product) the
                  PyTorch expression, with the host's time per wrapper call
                  and the empty kernel; the NTT kernels also at 4096 rows,
                  with a host breakdown of a wrapper call; the fused kernel
                  over its launch shapes, beside the three standalone
                  launches each one replaces, timed at the same sizes;
-13. profile      the GC path's shape at n=512 and the CKKS main job under
+14. profile      the GC path's shape at n=512 and the CKKS main job under
                  torch.profiler: device time by op, and the busy share;
-14. attn kernels the paged-attention kernels (split and combine) against
+15. attn kernels the paged-attention kernels (split and combine) against
                  their plain version on the card (rtol 1e-4, atol 1e-5),
                  f32 and bf16 pages: the JAX package's test shapes, qwen2's
                  head shape at batch 1 and 8 (ragged lengths, permuted
@@ -114,26 +130,26 @@ in full float32.  Phases, each raising on failure:
                  over host tables and over tables prepared with 2-page
                  chunks, stablelm-3b's heads (head_dim 80) and a group of
                  16;
-15. serve parity reduced qwen2 in f32 with nonzero biases served on the
+16. serve parity reduced qwen2 in f32 with nonzero biases served on the
                  card equals the same run with device="cpu": greedy tokens,
                  and teacher-forced logits within relative 1e-4, for the
                  paged and the contiguous decode;
-16. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
+17. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
                  run_server with the paged decode: 4 requests of 200-token
                  prompts, 64 new tokens each, every decode attention through
                  the kernels (252 steps x 28 layers wrapper calls, the
                  tables prepared once a step), held against the contiguous
                  decode teacher-forced on its tokens;
-17. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
+18. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
                  64 prompt tokens and 8 new ones, paged (7 steps x 32
                  layers wrapper calls) against its contiguous decode;
-18. attn record  a wrapper call timed at the main path's lengths and at the
+19. attn record  a wrapper call timed at the main path's lengths and at the
                  32768-token batch: device time summed over the kernels it
                  launches (split and combine also apart, profiler), the
                  host's time per call over prepared and over host tables
                  (events), beside the bound, the plain version and gather +
                  scaled_dot_product_attention;
-19. serve profile a few decode steps of the serve main job under
+20. serve profile a few decode steps of the serve main job under
                  torch.profiler: device time by op and the busy share.
 
 The last four lines are a JSON summary of the run's headline numbers, the
@@ -719,7 +735,9 @@ def phase_parity(dev, cpu: dict) -> dict:
     log(f"sync swaps: merge n={SYNC_SWAPS['n']} with SWAP_IN/SWAP_OUT only, "
         f"on the card ({t_s:.2f} s), checked against the oracle; swaps "
         f"in/out {_swaps(sync)[:2]}")
-    return {"card_s": t_g, "cpu_s": t_c, "sync_card_s": t_s}
+    # the card's run, which the fleet phase's saved-plan job is held to
+    ref = {"outputs": out_g, "ands": ands, "digest": gpu.table_digest}
+    return {"card_s": t_g, "cpu_s": t_c, "sync_card_s": t_s}, ref
 
 
 def phase_main(dev) -> tuple[dict, dict, dict]:
@@ -2254,18 +2272,20 @@ UNBOUNDED = dict(plan_mode="unbounded")
 W_LOOPS = ("batched", "overlap")
 #: (workload, n, plan, workers, loops): every job checked against its
 #: oracle, each p = 4 job beside the p = 1 job of the same n and plan.
-#: merge at Fig. 10's n = 16384 unbounded; planned it is cut to Fig. 10's
-#: tiny n = 2048 (benchmarks/fig10_parallel.py:29) on the batched loop
-#: only (its overlap run is the parity job's): NET directives and swap
-#: directives are barriers to exec.batching, so the planned program
-#: batches almost nothing and runs at the host's pace per AND call (the
-#: phase took 341 s with it at n = 4096 on both loops); sort n = 8192 and
-#: mvmul n = 384 are cut for time
+#: merge at Fig. 10's n = 16384 unbounded on the batched loop; its
+#: overlap run is cut to Fig. 10's tiny n = 2048 (91.6 s at n = 16384,
+#: to make room for the fleet phase); planned it is cut to n = 2048
+#: (benchmarks/fig10_parallel.py:29) on the batched loop only (its
+#: overlap run is the parity job's): NET directives and swap directives
+#: are barriers to exec.batching, so the planned program batches almost
+#: nothing and runs at the host's pace per AND call (the phase took 341 s
+#: with it at n = 4096 on both loops); sort n = 8192 and mvmul n = 384
+#: are cut for time
 WORKER_JOBS = [
-    ("merge", 16384, UNBOUNDED, WORKERS, W_LOOPS),
+    ("merge", 16384, UNBOUNDED, WORKERS, ("batched",)),
     ("merge", 16384, UNBOUNDED, 1, ("batched",)),
     ("merge", 2048, W_GC_PLAN, WORKERS, ("batched",)),
-    ("merge", 2048, UNBOUNDED, WORKERS, ("batched",)),
+    ("merge", 2048, UNBOUNDED, WORKERS, W_LOOPS),
     ("merge", 2048, W_GC_PLAN, 1, ("batched",)),
     ("merge", 2048, UNBOUNDED, 1, ("batched",))] + [
     (wl, n, plan, p, W_LOOPS if p > 1 else ("batched",))
@@ -2468,6 +2488,246 @@ def phase_workers(dev) -> tuple[dict, dict, dict]:
             "launches": {"garble_and": gc["garble_launches"],
                          "eval_and": gc["eval_launches"],
                          "ntt": ntt["launches"]}}, gc, ntt
+
+
+# ---------------------------------------------------------------------------
+# the fleet: saved plans, and one process a rank over localhost TCP
+# ---------------------------------------------------------------------------
+
+#: (name, ``plan`` arguments, ``fabric`` arguments, timeout s): the parity
+#: phase's planned merge through a saved plan, as a garbler and an
+#: evaluator process; GC main's unbounded job as a two-rank fleet (the
+#: party link over TCP), cut to n = 4096 and held to the same job run in
+#: process; Fig. 10's merge at four workers a party as an 8-rank fleet
+#: and at one worker as a 2-rank fleet, cut to n = 2048 (the workers
+#: phase's n = 2048 jobs beside them); and rsum at four workers, ring
+#: 1024, as a 4-rank fleet.  The cuts are the issue's, in its order: at
+#: n = 16384 the 8-rank fleet took 211 s (the in-process run 53 s), and
+#: with it at n = 2048 the phase still took 125 s, 19 s of them the
+#: two-rank fleet at n = 16384
+FIG10_N = 2048
+FLEET_TCP = dict(n=4096, plan_mode="unbounded")
+FLEET_JOBS = [
+    ("saved-plan", ["--workload", "merge", "-n", str(PARITY["n"]),
+                    "--budget", str(PARITY["memory_budget"]), "--lookahead",
+                    str(PARITY["lookahead"]), "--prefetch",
+                    str(PARITY["prefetch_pages"])], ["--real", "--digest"],
+     120),
+    ("gc-tcp", ["--workload", "merge", "-n", str(FLEET_TCP["n"])],
+     ["--real"], 120),
+    ("fig10-p4", ["--workload", "merge", "-n", str(FIG10_N), "--workers",
+                  str(WORKERS)], ["--real"], 180),
+    ("fig10-p1", ["--workload", "merge", "-n", str(FIG10_N)], ["--real"],
+     120),
+    ("rsum-p4", ["--workload", "rsum", "-n", "256", "--workers",
+                 str(WORKERS), "--budget", "0.4", "--lookahead", "100",
+                 "--prefetch", "16", "--ckks-ring", "1024", "--ckks-levels",
+                 "2"], [], 120)]
+
+
+def _tuplify(x):
+    return tuple(_tuplify(v) for v in x) if isinstance(x, list) else x
+
+
+def _fleet_counts(reports: list) -> tuple[dict, dict]:
+    """The half gates' and the NTT counters summed over the ranks' own
+    (each set to 0 just before its rank ran), in ``ops.counts()`` /
+    ``nops.counts()`` form for kernel_record and ntt_record."""
+    gc = {k: 0 for k in ("garble_launches", "eval_launches", "garble_ands",
+                         "eval_ands")}
+    gc["launch_sizes"] = {"garble": {}, "eval": {}}
+    ntt = {k: dict.fromkeys(nops.KINDS, 0) for k in ("launches", "rows",
+                                                     "plain_calls")}
+    ntt["launch_sizes"] = {k: {} for k in nops.KINDS}
+    ntt["mul_shapes"] = {}
+    for rep in reports:
+        kc = rep["kernel_counts"]
+        for k in ("garble_launches", "eval_launches", "garble_ands",
+                  "eval_ands"):
+            gc[k] += kc["gc"][k]
+        for src, dst in ((kc["gc"]["launch_sizes"], gc["launch_sizes"]),
+                         (kc["ntt"]["launch_sizes"], ntt["launch_sizes"])):
+            for kind, pairs in src.items():
+                for m, k in pairs:
+                    dst[kind][m] = dst[kind].get(m, 0) + k
+        for key in ("launches", "rows", "plain_calls"):
+            for kind, v in kc["ntt"][key].items():
+                ntt[key][kind] += v
+        for shape, k in kc["ntt"]["mul_shapes"]:
+            shape = _tuplify(shape)
+            ntt["mul_shapes"][shape] = ntt["mul_shapes"].get(shape, 0) + k
+    return gc, ntt
+
+
+def _fleet_job(name: str, plan: list, flags: list, timeout: int,
+               tmp: str) -> dict:
+    """``plan`` a job into a directory, then ``fabric`` it (one process a
+    rank, each checked: on the card, every AND gate and NTT through the
+    kernels and no plain version run), all through the port's CLI."""
+    from repro_torch import __main__ as cli
+    job = os.path.join(tmp, name)
+    merged = os.path.join(tmp, f"{name}.json")
+    t0 = time.perf_counter()
+    if cli.main(["plan", *plan, "--out", job]) != 0:
+        raise AssertionError(f"fleet {name}: plan failed")
+    plan_s = time.perf_counter() - t0
+    if cli.main(["fabric", job, "--check", "--json", merged, "--timeout",
+                 str(timeout), *flags]) != 0:
+        raise AssertionError(f"fleet {name}: fabric failed")
+    with open(merged) as f:
+        doc = json.load(f)
+    ranks = sorted(doc["ranks"], key=lambda r: r["rank"])
+    for r in ranks:
+        kc = r["kernel_counts"]
+        if not r["device"].startswith("cuda"):
+            raise AssertionError(f"fleet {name}: rank {r['rank']} ran on "
+                                 f"{r['device']}")
+        if any(kc["ntt"]["plain_calls"].values()):
+            raise AssertionError(f"fleet {name}: rank {r['rank']} ran plain "
+                                 f"NTT versions {kc['ntt']['plain_calls']}")
+        if r["driver"] == "gc-2party":
+            got = [kc["gc"]["garble_ands"], kc["gc"]["eval_ands"]]
+            if got != r["and_gates"] or not sum(got):
+                raise AssertionError(f"fleet {name}: rank {r['rank']}'s ANDs "
+                                     f"through the kernels {got} != its gate "
+                                     f"counts {r['and_gates']}")
+        elif not kc["ntt"]["launches"]["ntt_mul"]:
+            raise AssertionError(f"fleet {name}: rank {r['rank']} launched "
+                                 f"no fused NTT kernel")
+    ex = [r["timings"]["execute_s"] for r in ranks]
+    res = {"ranks": len(ranks), "plan_s": plan_s,
+           "fleet_s": doc["seconds"], "execute_s": ex,
+           "connect_s": [r["timings"]["connect_s"] for r in ranks],
+           "barrier_s": [r["timings"]["barrier_s"] for r in ranks],
+           "max_memory_allocated": [r["max_memory_allocated"]
+                                    for r in ranks],
+           "and_gates": [r["and_gates"] for r in ranks],
+           "links": {k: v for r in ranks for k, v in r["links"].items()},
+           "digests": {k: v for r in ranks
+                       for k, v in r["table_digests"].items()},
+           "outputs": {int(k): np.asarray(v, dtype=np.uint64 if
+                                          doc["driver"] != "ckks" else
+                                          np.float64)
+                       for k, v in doc["outputs"].items()},
+           "reports": ranks}
+    log(f"fleet: {name}, {len(ranks)} ranks ({doc['driver']}) on "
+        f"{sorted({r['device'] for r in ranks})}, {len(res['outputs'])} "
+        f"outputs checked against the oracle: plan {plan_s:.2f} s, fleet "
+        f"{doc['seconds']:.2f} s wall; execute a rank "
+        f"{[round(x, 3) for x in ex]} s, connect "
+        f"{[round(x, 2) for x in res['connect_s']]} s, barrier "
+        f"{[round(x, 3) for x in res['barrier_s']]} s; AND gates "
+        f"{res['and_gates']}; max_memory_allocated a rank "
+        f"{res['max_memory_allocated']}; links {res['links']}")
+    return res
+
+
+def phase_fleet(dev, parity_ref: dict, workers: dict
+                ) -> tuple[dict, dict, dict]:
+    """Saved plans and the fleet on the card, through the port's own CLI
+    (``plan``, then ``fabric``: one ``run JOBDIR --worker K`` process a
+    rank over localhost TCP), each job held to its in-process run of this
+    call.  Returns the metrics and the half gates' and NTT counters summed
+    over every rank's run (each rank's set to 0 just before it ran)."""
+    import tempfile
+    out = {}
+    tcp_s, tcp_out, _, tcp_c = _gc_checked_run(FLEET_TCP, dev)
+    with tempfile.TemporaryDirectory(prefix="mage_fleet_") as tmp:
+        jobs = {name: _fleet_job(name, plan, flags, timeout, tmp)
+                for name, plan, flags, timeout in FLEET_JOBS}
+    gc, ntt = _fleet_counts([r for j in jobs.values() for r in j["reports"]])
+    # 1. the saved plan, as two processes, equals the parity phase's run
+    j = jobs["saved-plan"]
+    if not _same(j["outputs"], parity_ref["outputs"]):
+        raise AssertionError("fleet saved-plan: outputs != the in-process "
+                             "card run's")
+    if [j["and_gates"][0][0], j["and_gates"][1][1]] != parity_ref["ands"]:
+        raise AssertionError(f"fleet saved-plan: AND counts "
+                             f"{j['and_gates']} != {parity_ref['ands']}")
+    if j["digests"] != {"0->1": parity_ref["digest"]}:
+        raise AssertionError("fleet saved-plan: the garbler's table stream "
+                             "differs from the in-process run's")
+    log(f"fleet: saved-plan merge n={PARITY['n']} as two processes == the "
+        f"parity phase's in-process card run: outputs, "
+        f"{parity_ref['ands'][0]} ANDs, the garbler's table sha256 "
+        f"{parity_ref['digest'][:16]}")
+    out["saved_plan"] = {k: j[k] for k in ("fleet_s", "execute_s",
+                                           "max_memory_allocated")}
+    # 2. two-party GC over TCP equals the same job in process
+    j = jobs["gc-tcp"]
+    if not _same(j["outputs"], tcp_out):
+        raise AssertionError("fleet gc-tcp: outputs != the in-process run's")
+    ands = j["and_gates"][0][0]
+    launches = j["reports"][0]["kernel_counts"]["gc"]["garble_launches"]
+    if ands != tcp_s.gate_counts[0].ands or \
+            launches != tcp_c["garble_launches"]:
+        raise AssertionError(f"fleet gc-tcp: {ands} ANDs in {launches} "
+                             f"launches != the in-process run's "
+                             f"{tcp_s.gate_counts[0].ands} in "
+                             f"{tcp_c['garble_launches']}")
+    link = j["links"]["0->1"]
+    t = max(j["execute_s"])
+    t_in = tcp_s.timings["execute_s"]
+    out["gc_tcp"] = {"n": FLEET_TCP["n"], "execute_s": j["execute_s"],
+                     "fleet_s": j["fleet_s"], "party_link": link,
+                     "party_link_bytes_per_s": link[1] / t,
+                     "in_process_execute_s": t_in,
+                     "max_memory_allocated": j["max_memory_allocated"]}
+    log(f"fleet: gc-tcp merge n={FLEET_TCP['n']} unbounded as two "
+        f"processes: execute {t:.3f} s (in process {t_in:.3f} s, same "
+        f"call); party link {link[0]} messages, {link[1]} bytes, "
+        f"{link[1] / t:.4e} bytes/s; {ands} ANDs a party in {launches} "
+        f"launches, as in process")
+    wj = workers["jobs"]
+    # 3. Fig. 10's merge at p = 4 and p = 1, one process a rank, beside
+    # the same jobs in process
+    f4, f1 = jobs["fig10-p4"], jobs["fig10-p1"]
+    if not _same(f4["outputs"], f1["outputs"]):
+        raise AssertionError("fleet fig10: p = 4 and p = 1 outputs differ")
+    i4, i1 = (wj[f"merge-{FIG10_N}-unbounded-p{p}-batched"] for p in (4, 1))
+    for j, inproc, p in ((f4, i4, WORKERS), (f1, i1, 1)):
+        g_ands = sum(a[0] for a in j["and_gates"])
+        if g_ands != inproc["ands"]:
+            raise AssertionError(f"fleet fig10 p={p}: {g_ands} ANDs a party "
+                                 f"!= the in-process run's {inproc['ands']}")
+    t4, t1 = max(f4["execute_s"]), max(f1["execute_s"])
+    out["fig10"] = {
+        "n": FIG10_N, "p4_execute_s": f4["execute_s"],
+        "p1_execute_s": f1["execute_s"], "p4_fleet_s": f4["fleet_s"],
+        "p1_fleet_s": f1["fleet_s"],
+        "max_memory_allocated": f4["max_memory_allocated"],
+        "in_process_p4_s": i4["execute_s"], "in_process_p1_s":
+        i1["execute_s"], "fleet_p4_over_p1": t4 / t1,
+        "in_process_p4_over_p1": i4["execute_s"] / i1["execute_s"],
+        "fleet_over_in_process": [t4 / i4["execute_s"],
+                                  t1 / i1["execute_s"]]}
+    log(f"fleet: fig10 merge n={FIG10_N} unbounded, p={WORKERS} as "
+        f"{f4['ranks']} processes and p=1 as {f1['ranks']}: execute {t4:.3f}"
+        f" / {t1:.3f} s (slowest rank); in process, same call: "
+        f"{i4['execute_s']:.3f} / {i1['execute_s']:.3f} s; p4 / p1 as a "
+        f"fleet {t4 / t1:.4f}, in process "
+        f"{i4['execute_s'] / i1['execute_s']:.4f}")
+    j = jobs["rsum-p4"]
+    inproc = wj["rsum-256-memory-p4-batched"]
+    got = {k: sum(r["kernel_counts"]["ntt"]["launches"][k]
+                  for r in j["reports"]) for k in nops.KINDS}
+    if got != inproc["ntt_launches"]:
+        raise AssertionError(f"fleet rsum-p4: NTT launches {got} != the "
+                             f"in-process run's {inproc['ntt_launches']}")
+    out["rsum_p4"] = {"execute_s": j["execute_s"], "fleet_s": j["fleet_s"],
+                      "ntt_launches": got,
+                      "in_process_execute_s": inproc["execute_s"],
+                      "max_memory_allocated": j["max_memory_allocated"]}
+    log(f"fleet: rsum n=256 p={WORKERS} ring 1024 as {j['ranks']} processes: "
+        f"execute {max(j['execute_s']):.3f} s (in process "
+        f"{inproc['execute_s']:.3f} s), NTT launches {got} == in process")
+    out["launches"] = {"garble_and": gc["garble_launches"],
+                       "eval_and": gc["eval_launches"],
+                       "ntt": ntt["launches"]}
+    log(f"fleet: the phase's launches over every rank: garble_and "
+        f"{gc['garble_launches']}, eval_and {gc['eval_launches']}; NTT "
+        f"{ntt['launches']}")
+    return out, gc, ntt
 
 
 # ---------------------------------------------------------------------------
@@ -3146,7 +3406,7 @@ def main() -> None:
         ntt_errs = timed("ntt kernels", phase_ntt_kernels, dev)
         attn_err = timed("attn kernels", phase_attn_kernels, dev)
         cpu_parity = cpu_parity.get()
-    parity = timed("parity", phase_parity, dev, cpu_parity)
+    parity, parity_ref = timed("parity", phase_parity, dev, cpu_parity)
     ckks_parity = timed("ckks parity", phase_ckks_parity, dev)
     serve_parity = timed("serve parity", phase_serve_parity, dev)
     counts, metrics, main_out = timed("main", phase_main, dev)
@@ -3161,12 +3421,15 @@ def main() -> None:
     gc_workloads, gc_counts, pir_counts = timed(
         "gc workloads", phase_gc_workloads, dev)
     workers, w_counts, w_ntt = timed("workers", phase_workers, dev)
+    fleet, f_counts, f_ntt = timed("fleet", phase_fleet, dev, parity_ref,
+                                   workers)
+    del parity_ref
     rows, gate_launch = timed("record", kernel_record, dev, {
-        "gc main": counts, "gc workloads": gc_counts, "workers": w_counts},
-        errs)
+        "gc main": counts, "gc workloads": gc_counts, "workers": w_counts,
+        "fleet": f_counts}, errs)
     ntt_rows, ntt_big = timed("ntt record", ntt_record, dev, {
         "ckks main": ntt_counts, "gc workloads": pir_counts,
-        "workers": w_ntt}, ntt_errs)
+        "workers": w_ntt, "fleet": f_ntt}, ntt_errs)
     attn_row, attn_timing = timed("attn record", attn_record, dev,
                                   attn_counts, attn_err)
     profiled = timed("profile", phase_profile, dev)
@@ -3183,7 +3446,7 @@ def main() -> None:
         "serve_parity": serve_parity, "attn": attn_timing,
         "serve_stablelm": stablelm,
         "serve_profile": serve_profiled, "baselines": baselines,
-        "gc_workloads": gc_workloads, "workers": workers,
+        "gc_workloads": gc_workloads, "workers": workers, "fleet": fleet,
         "phases_s": phases,
         "total_s": time.perf_counter() - t_all}))
     print(smi, flush=True)

@@ -3,19 +3,33 @@ counterpart of ``repro.api`` for the paths the port runs:
 
     trace() → plan() → execute(real=True, check=...)
 
-``execute`` dispatches on the workload's protocol.  Every party runs
-``num_workers`` engines, all threads of this process on one device over
-one in-process transport of ``parties * num_workers`` endpoints (global
-rank ``party * num_workers + worker``).  Workers of a party exchange
-values through NET_* directives over their worker links (each engine has
-a ``PartyView`` of its party's ranks).  A garbled-circuit job runs two
-parties: garbler worker k streams its tables to evaluator worker k over
-their own party link, and every AND gate goes through the half-gates
-kernels.  With ``real=False`` it runs one party with the plaintext
-oracle driver (the JAX package's ``gc-plaintext``) instead.  A CKKS job
-runs one party whose transforms and products go through the NTT kernels.
-The device is the card unless the caller passes ``device="cpu"``;
-without a card and without that, the Session raises.
+Every party runs ``num_workers`` engines over one transport fabric of
+``parties * num_workers`` endpoints (global rank ``party * num_workers +
+worker``), built from the spec's ``transport`` and ``fabric``
+(``core.transport``): by default every engine is a thread of this
+process on one device over the ``inproc`` backend; ``tcp``, ``shaped``
+and ``shaped+tcp`` carry the same traffic over sockets or shaped links,
+and ``fabric.rank=k`` hosts exactly one engine, which reaches the others
+at ``fabric.peers`` (``python -m repro_torch run JOBDIR --worker k``, one
+process a rank).  Workers of a party exchange values through NET_*
+directives over their worker links (each engine has a ``PartyView`` of
+its party's ranks).  Drivers come from a registry keyed by name: a
+garbled-circuit job runs ``gc-2party`` (two parties: garbler worker k
+streams its tables to evaluator worker k over their own party link, and
+every AND gate goes through the half-gates kernels) or, with
+``real=False``, ``gc-plaintext`` (one party in the clear, the JAX
+package's oracle driver); a CKKS job runs ``ckks`` (one party whose
+transforms and products go through the NTT kernels).  A factory builds
+drivers for the ranks this process hosts only.  The device is the card
+unless the caller passes ``device="cpu"``; without a card and without
+that, the Session raises.
+
+Plans are saved to a directory (``save_plan``: ``workerK.memory.bc``
+program files and a ``job.json`` manifest, in the JAX package's format)
+and loaded for execution (``Session.from_plan``), here or as one rank of
+a fleet.  The spec's plan hash (``JobSpec.plan_hash``, the reference's
+digest) is stamped into every program's ``meta``, so a stale or tampered
+plan raises :class:`SpecMismatchError` instead of running.
 
 The knobs are the JAX package's, with its names and values: ``plan_mode``
 "memory" (planned paging at a budget) or "unbounded" (the baseline: the
@@ -34,18 +48,22 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
+import os
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 
-from .core.bytecode import Program
-from .core.engine import Engine, EngineStats, swapped_pages
+from .core.bytecode import Program, ProgramFile, write_program
+from .core.engine import Engine, EngineStats, ProtocolDriver, swapped_pages
 from .core.liveness import stripped_touches, working_set_pages
-from .core.planner import PlanConfig, PlanReport, plan
+from .core.planner import PlanConfig, PlanReport
 from .core.replacement import POLICIES
 from .core.storage import MemmapStorage, PinnedStorage
-from .core.transport import InprocTransport, LinkStats, PartyView
+from .core.transport import (TRANSPORTS, Fabric, FabricSpec, LinkStats,
+                             build_fabric)
 from .core.workers import PARALLEL_MODES, EngineJob, plan_workers, \
     run_engines
 from .exec.batched_ckks import BatchedCkksDriver
@@ -81,6 +99,27 @@ NOT_PORTED = {"streaming": "the streaming planner (ROADMAP Queue 1 item 6)"}
 #: swap storages by the JAX package's names; "ram" is pinned host memory
 STORAGES = {"ram": PinnedStorage, "memmap": MemmapStorage}
 
+#: version stamped into every machine-readable output (``--json`` files)
+SCHEMA_VERSION = 1
+#: a saved plan's manifest, beside its ``workerK.memory.bc`` files
+JOB_FILE = "job.json"
+#: the JobSpec fields that determine the planned memory program (the JAX
+#: package's): execution details (driver, backend, storage, transport,
+#: placement, parallelism, plan_mode) are left out, so one plan runs
+#: under all of them
+PLAN_HASH_FIELDS = ("workload", "n", "num_workers", "memory_budget",
+                    "lookahead", "prefetch_pages", "policy", "swap_bypass",
+                    "ckks_ring", "ckks_levels")
+#: JobSpec fields of the JAX package that steer only its own execution
+#: (its planner and simulator cores, the streaming planner's files): a
+#: manifest it wrote carries them, and the port reads and ignores them
+REFERENCE_ONLY_FIELDS = ("plan_core", "sim_core", "workdir", "chunk_instrs",
+                         "track_plan_memory")
+
+
+class SpecMismatchError(ValueError):
+    """A plan artifact does not match the spec that claims it."""
+
 
 @dataclasses.dataclass(frozen=True)
 class JobSpec:
@@ -92,7 +131,11 @@ class JobSpec:
     frames, below the working set so there is real memory pressure, the
     prefetch buffer at most a quarter of the budget), per worker against
     that worker's own working set.  ``None`` requires
-    ``plan_mode="unbounded"``, which takes no budget."""
+    ``plan_mode="unbounded"``, which takes no budget.  ``driver`` names a
+    registered driver ("auto": ``gc-plaintext`` or ``ckks`` by the
+    workload's protocol); ``transport`` and ``fabric`` pick the backend
+    and place the endpoints (``core.transport.FabricSpec``).  None of the
+    three is part of the plan hash."""
     workload: str
     n: int | None = None                  # records per party (None: default)
     num_workers: int = 1                  # engines per party
@@ -103,8 +146,11 @@ class JobSpec:
     swap_bypass: bool = False
     plan_mode: str = "memory"             # memory | unbounded
     parallel_plan: bool | str = "serial"  # serial | thread | process
+    driver: str = "auto"                  # auto -> the protocol's default
     exec_backend: str = "batched"         # batched | scalar | overlap
     storage: str = "ram"                  # ram | memmap
+    transport: str = "inproc"             # inproc | tcp | shaped | shaped+tcp
+    fabric: FabricSpec | None = None      # endpoint placement, shaping
     ckks_ring: int | None = None          # CKKS N override (benchmarks)
     ckks_levels: int | None = None
 
@@ -137,10 +183,53 @@ class JobSpec:
                 self.parallel_plan, self.parallel_plan) not in PARALLEL_MODES:
             raise ValueError(f"parallel_plan must be one of "
                              f"{PARALLEL_MODES}, got {self.parallel_plan!r}")
+        if isinstance(self.fabric, dict):      # from_dict / JSON round trip
+            object.__setattr__(self, "fabric", FabricSpec(**self.fabric))
 
-    def normalized(self, workload: Workload) -> "JobSpec":
-        return self if self.n is not None else \
-            dataclasses.replace(self, n=workload.default_n)
+    def normalized(self, workload: Workload | None = None) -> "JobSpec":
+        """Fill the workload's defaults in: ``n`` and the driver."""
+        w = workload if workload is not None else get(self.workload)
+        changes = {}
+        if self.n is None:
+            changes["n"] = w.default_n
+        if self.driver == "auto":
+            changes["driver"] = "ckks" if w.protocol == "ckks" \
+                else "gc-plaintext"
+        return dataclasses.replace(self, **changes) if changes else self
+
+    def plan_hash(self, workload: Workload | None = None) -> str:
+        """Digest of the plan-determining fields (``PLAN_HASH_FIELDS``),
+        canonicalized as the JAX package does, so both give one digest."""
+        spec = self.normalized(workload)
+        payload = {k: getattr(spec, k) for k in PLAN_HASH_FIELDS}
+        blob = json.dumps(payload, sort_keys=True, separators=(",", ":"))
+        return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "JobSpec":
+        """The inverse of ``to_dict``; also takes the JAX package's
+        ``to_dict``, whose ``REFERENCE_ONLY_FIELDS`` are dropped.  Any
+        other unknown field raises."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known - set(REFERENCE_ONLY_FIELDS)
+        if unknown:
+            raise ValueError(f"unknown JobSpec fields: {sorted(unknown)}")
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+def load_manifest(jobdir: str | os.PathLike) -> tuple[dict, JobSpec]:
+    """A saved plan's ``job.json`` and its spec.  A manifest that says
+    ``plan_mode="streaming"`` (the JAX package's ``plan`` default) loads
+    as the memory plan it already is: the mode is outside the hash."""
+    with open(os.path.join(os.fspath(jobdir), JOB_FILE)) as f:
+        manifest = json.load(f)
+    d = dict(manifest["spec"])
+    if d.get("plan_mode") == "streaming":
+        d["plan_mode"] = "memory"
+    return manifest, JobSpec.from_dict(d)
 
 
 def resolve_plan_config(spec: JobSpec, working_set: int) -> PlanConfig:
@@ -158,6 +247,20 @@ def resolve_plan_config(spec: JobSpec, working_set: int) -> PlanConfig:
     return PlanConfig(num_frames=budget, lookahead=spec.lookahead,
                       prefetch_pages=prefetch, policy=spec.policy,
                       swap_bypass=spec.swap_bypass)
+
+
+def ckks_params(w: Workload, spec: JobSpec) -> CkksParams:
+    """The workload's CKKS parameters with the spec's ring and levels (the
+    scale and noise parameters stay)."""
+    p = w.params.get("ckks_params", DEFAULT_CKKS)
+    return dataclasses.replace(p, n_ring=spec.ckks_ring or p.n_ring,
+                               levels=spec.ckks_levels or p.levels)
+
+
+def oracle_extra(w: Workload, spec: JobSpec) -> dict:
+    """What the workload's trace, inputs and oracle take beyond n."""
+    return {"ckks_params": ckks_params(w, spec)} \
+        if w.protocol == "ckks" else {}
 
 
 def check_outputs(w: Workload, n: int, outputs: dict[int, np.ndarray],
@@ -182,26 +285,112 @@ def check_outputs(w: Workload, n: int, outputs: dict[int, np.ndarray],
                 raise AssertionError(f"{w.name} tag {tag}: err {err}")
 
 
+# ---------------------------------------------------------------------------
+# the driver registry
+# ---------------------------------------------------------------------------
+
+#: a factory builds the drivers of the ranks THIS process hosts:
+#: ``factory(session, fabric, digest) -> {global rank: driver}`` for
+#: ``fabric.hosted`` only, so a single-rank process builds its own driver
+DriverFactory = Callable[["Session", Fabric, bool],
+                         dict[int, ProtocolDriver]]
+
+
+@dataclasses.dataclass(frozen=True)
+class DriverDef:
+    factory: DriverFactory
+    parties: int = 1
+    #: the batched driver a batch or overlap schedule wraps it in
+    batched: Callable[[ProtocolDriver], ProtocolDriver] | None = None
+
+
+DRIVERS: dict[str, DriverDef] = {}
+
+
+def register_driver(name: str, factory: DriverFactory, parties: int = 1,
+                    batched=None) -> None:
+    DRIVERS[name] = DriverDef(factory, parties, batched)
+
+
+def _driver_def(name: str) -> DriverDef:
+    try:
+        return DRIVERS[name]
+    except KeyError:
+        raise KeyError(f"unknown driver {name!r}; registered: "
+                       f"{sorted(DRIVERS)}") from None
+
+
+def driver_parties(name: str) -> int:
+    """Parties (rank blocks) a registered driver deploys."""
+    return _driver_def(name).parties
+
+
+def list_transports() -> list[str]:
+    """Registered transport backends (``JobSpec.transport`` values)."""
+    return sorted(TRANSPORTS)
+
+
+def _gc_plaintext_drivers(s: "Session", fx: Fabric, digest: bool
+                          ) -> dict[int, ProtocolDriver]:
+    w, n, p = s.workload, s.spec.n, s.spec.num_workers
+    return {r: PlaintextDriver(w.inputs(n, r % p, p)) for r in fx.hosted}
+
+
+def _gc_two_party_drivers(s: "Session", fx: Fabric, digest: bool
+                          ) -> dict[int, ProtocolDriver]:
+    """Garbler worker k is rank k, evaluator worker k rank p + k, and each
+    pair has its own party link (the one-to-one topology of Fig. 3)."""
+    w, n, p = s.workload, s.spec.n, s.spec.num_workers
+    out: dict[int, ProtocolDriver] = {}
+    for r in fx.hosted:
+        party, wk = divmod(r, p)
+        chan = PartyChannel(fx.transport_for(r), src=wk, dst=p + wk,
+                            digest=digest)
+        out[r] = GarblerDriver(chan, s.device, w.inputs(n, wk, p),
+                               seed=GARBLER_SEED) if party == 0 else \
+            EvaluatorDriver(chan, s.device, w.inputs(n, wk, p))
+    return out
+
+
+def _ckks_drivers(s: "Session", fx: Fabric, digest: bool
+                  ) -> dict[int, ProtocolDriver]:
+    w, n, p = s.workload, s.spec.n, s.spec.num_workers
+    return {r: CkksDriver(s.ckks_params(),
+                          w.inputs(n, r % p, p, **s._extra()),
+                          seed=CKKS_SEED, device=s.device)
+            for r in fx.hosted}
+
+
+register_driver("gc-plaintext", _gc_plaintext_drivers,
+                batched=BatchedPlaintextDriver)
+register_driver("gc-2party", _gc_two_party_drivers, parties=2,
+                batched=BatchedGCDriver)
+register_driver("ckks", _ckks_drivers, batched=BatchedCkksDriver)
+
+
 class Session:
     """Staged trace→plan→execute over one JobSpec on one device.
 
-    After ``execute()``: ``engines`` by global rank (each holding its final
-    ``memory``), their ``engine_stats`` and (closed) ``storages``,
-    ``timings`` (``trace_s``, ``plan_s``, ``batch_schedule_s`` or
-    ``overlap_schedule_s``, ``execute_s``), ``transport_stats`` (sent
-    traffic per (src rank, dst rank, tag): worker links and party links)
-    and the protocol's records.  Garbled circuits run for real:
-    ``gate_counts`` (garbler, evaluator; each summed over the party's
-    workers) and, with ``digest=True``, ``table_digests``, one SHA-256 of
-    the garbled-table stream per party link (garbler rank, evaluator
+    After ``execute()``, over the ranks this process hosts (``hosted``,
+    global ranks) and the driver they ran (``driver_name``): ``engines``
+    in rank order (each holding its final ``memory``), their
+    ``engine_stats`` and (closed) ``storages``, ``timings`` (``trace_s``,
+    ``plan_s``, ``batch_schedule_s`` or ``overlap_schedule_s``,
+    ``connect_s``, ``execute_s``, and for a distributed rank
+    ``barrier_s``), ``transport_stats`` (traffic the hosted ranks sent,
+    per (src rank, dst rank, tag): worker links and party links) and the
+    protocol's records.  Garbled circuits: ``gate_counts`` (garbler,
+    evaluator; each summed over the party's hosted workers) and, with
+    ``digest=True``, ``table_digests``, one SHA-256 of the garbled-table
+    stream per hosted garbler's party link (garbler rank, evaluator
     rank), and ``table_digest``, that of the one link or, with several,
-    of their digests in rank order; in the clear, one party.
-    ``workload`` overrides the registry's (the JAX package's runner
-    passes one with other CKKS parameters).  CKKS: ``ckks_counts``, the
-    rows of the transforms and modular products the job asked for
-    (``ntt_forward``, ``ntt_inverse``, ``mul_mod``; key generation
-    included), and ``op_counts``, its instructions by opcode, each summed
-    over the workers."""
+    of their digests in rank order (None unless every garbler is
+    hosted).  ``workload`` overrides the registry's (the JAX package's
+    runner passes one with other CKKS parameters).  CKKS:
+    ``ckks_counts``, the rows of the transforms and modular products the
+    job asked for (``ntt_forward``, ``ntt_inverse``, ``mul_mod``; key
+    generation included), and ``op_counts``, its instructions by opcode,
+    each summed over the hosted workers."""
 
     def __init__(self, spec: JobSpec, device: str | torch.device | None = None,
                  workload: Workload | None = None):
@@ -216,6 +405,8 @@ class Session:
         self._ws: dict[int, int] = {}
         self.configs: list[PlanConfig] = []
         self.plan_reports: list[PlanReport] = []
+        self.hosted: list[int] = []
+        self.driver_name: str | None = None
         self.engines: list[Engine] = []
         self.engine_stats: list[EngineStats] = []
         self.storages: list = []
@@ -233,20 +424,17 @@ class Session:
 
     @property
     def config(self) -> PlanConfig | None:
-        """Worker 0's plan config (None before planning or unbounded)."""
+        """Worker 0's plan config (None before planning, unbounded or
+        loaded from a saved plan)."""
         return self.configs[0] if self.configs else None
 
     def ckks_params(self) -> CkksParams:
         """The workload's CKKS parameters with the spec's ring and levels
         (the scale and noise parameters stay)."""
-        p = self.workload.params.get("ckks_params", DEFAULT_CKKS)
-        return dataclasses.replace(p, n_ring=self.spec.ckks_ring or p.n_ring,
-                                   levels=self.spec.ckks_levels or p.levels)
+        return ckks_params(self.workload, self.spec)
 
     def _extra(self) -> dict:
-        """What the workload's trace, inputs and oracle take beyond n."""
-        return {"ckks_params": self.ckks_params()} \
-            if self.protocol == "ckks" else {}
+        return oracle_extra(self.workload, self.spec)
 
     def trace(self) -> list[Program]:
         """Trace the workload's DSL program, one per worker (placement,
@@ -288,145 +476,221 @@ class Session:
         return self._planned
 
     def adopt_plan(self, programs: list[Program]) -> None:
-        """Execute these memory programs, one per worker, instead of
-        planning (e.g. the JAX package's plan, carried over by
-        ``interop.program_from_records``)."""
+        """Execute these programs, one per worker, instead of planning
+        (the JAX package's plan carried over by
+        ``interop.program_from_records``, or a saved plan): memory-phase
+        programs, or for an unbounded job the traced, virtual-phase
+        ones."""
+        phase = "virtual" if self.spec.plan_mode == "unbounded" \
+            else "memory"
         if len(programs) != self.spec.num_workers or \
-                any(p.phase != "memory" for p in programs):
+                any(p.phase != phase for p in programs):
             raise ValueError(f"expected {self.spec.num_workers} "
-                             f"memory-phase programs, one per worker")
+                             f"{phase}-phase programs, one per worker")
         self._planned = list(programs)
 
-    def execute(self, real: bool = True, check: bool = False,
+    def save_plan(self, outdir: str | os.PathLike) -> str:
+        """Write the planned programs (an unbounded job's traced ones) as
+        ``workerK.memory.bc`` files and a ``job.json`` manifest to
+        ``outdir``, in the JAX package's format; returns the manifest's
+        path.  Each program's ``meta`` carries the spec's plan hash and
+        the spec itself."""
+        outdir = os.fspath(outdir)
+        os.makedirs(outdir, exist_ok=True)
+        h = self.spec.plan_hash(self.workload)
+        names = []
+        for i, prog in enumerate(self.plan()):
+            prog.meta["spec_hash"] = h
+            prog.meta["job_spec"] = self.spec.to_dict()
+            name = f"worker{i}.memory.bc"
+            write_program(prog, os.path.join(outdir, name))
+            names.append(name)
+        path = os.path.join(outdir, JOB_FILE)
+        with open(path, "w") as f:
+            json.dump({"format": 1, "spec": self.spec.to_dict(),
+                       "spec_hash": h, "programs": names}, f, indent=2)
+        return path
+
+    @classmethod
+    def from_plan(cls, jobdir: str | os.PathLike, storage: str | None = None,
+                  driver: str | None = None, transport: str | None = None,
+                  fabric: FabricSpec | None = None,
+                  device: str | torch.device | None = None) -> "Session":
+        """Load a plan saved by either package for execution.  The spec's
+        hash is recomputed from the manifest and checked against the
+        manifest's and every program file's stamp: an edited
+        ``job.json``, a swapped plan file or a changed planner raises
+        :class:`SpecMismatchError` instead of running a stale plan.
+        ``storage``, ``driver``, ``transport`` and ``fabric`` override
+        execution details, which the hash leaves out: one plan runs in
+        this process or as one rank of a fleet."""
+        jobdir = os.fspath(jobdir)
+        manifest, spec = load_manifest(jobdir)
+        expect = spec.plan_hash()
+        if manifest.get("spec_hash") != expect:
+            raise SpecMismatchError(
+                f"job.json spec hashes to {expect} but the manifest claims "
+                f"{manifest.get('spec_hash')}: the spec was modified after "
+                f"planning; re-run `plan`")
+        overrides = {k: v for k, v in (("storage", storage),
+                                       ("driver", driver),
+                                       ("transport", transport),
+                                       ("fabric", fabric)) if v is not None}
+        if overrides:
+            spec = dataclasses.replace(spec, **overrides)
+        sess = cls(spec, device=device)
+        names = manifest["programs"]
+        if len(names) != sess.spec.num_workers:
+            raise SpecMismatchError(f"{len(names)} program files for "
+                                    f"{sess.spec.num_workers} workers")
+        planned = []
+        for k, name in enumerate(names):
+            pf = ProgramFile(os.path.join(jobdir, name))
+            got = pf.meta.get("spec_hash")
+            if got != expect or pf.worker != k:
+                raise SpecMismatchError(
+                    f"{name} was planned for spec {got}, worker "
+                    f"{pf.worker}; job.json says {expect}, worker {k}: "
+                    f"artifact and spec disagree")
+            planned.append(pf.read_program())
+        sess.adopt_plan(planned)
+        return sess
+
+    def _driver_name(self, real: bool | None) -> str:
+        if real is None or self.protocol != "gc":
+            return self.spec.driver      # CKKS is real crypto either way
+        return "gc-2party" if real else "gc-plaintext"
+
+    def execute(self, real: bool | None = True, check: bool = False,
                 digest: bool = False) -> dict[int, np.ndarray]:
-        """Run the plan; returns the merged ``tag -> value`` outputs of
-        every driver that has them (checked against the oracle with
-        ``check``).  Garbled circuits run with real two-party crypto, or in
-        the clear with ``real=False`` (the plaintext oracle driver);
-        ``digest`` hashes the garbled-table stream of each party link,
-        which copies every table to the host.  CKKS is real crypto either
-        way."""
-        if digest and not (real and self.protocol == "gc"):
+        """Run the plan on the ranks this process hosts; returns the
+        merged ``tag -> value`` outputs of every hosted driver that has
+        them (checked against the oracle with ``check``).  Garbled
+        circuits run with real two-party crypto, or in the clear with
+        ``real=False`` (the plaintext oracle driver); ``real=None`` runs
+        the spec's driver.  ``digest`` hashes the garbled-table stream of
+        each hosted party link, which copies every table to the host.
+        CKKS is real crypto either way.  With ``fabric.rank=k`` only
+        rank k runs, the run ends with a barrier across the fleet, and
+        ``check`` is refused (the outputs are partial)."""
+        name = self._driver_name(real)
+        ddef = _driver_def(name)
+        self.driver_name = name
+        if digest and name != "gc-2party":
             raise ValueError("digest=True hashes garbled tables: it needs a "
                              "garbled-circuit job with real=True")
+        p = self.spec.num_workers
+        fx = build_fabric(self.spec.transport, ddef.parties * p,
+                          self.spec.fabric, device=self.device)
+        if check and fx.distributed:
+            raise ValueError("check=True needs the full outputs; a "
+                             "distributed rank only holds its own (run "
+                             "`python -m repro_torch fabric` for a checked "
+                             "fleet)")
         planned = self.plan()
         scheds = oscheds = None
         t0 = time.perf_counter()
         if self.spec.exec_backend == "batched":
-            scheds = [build_batch_schedule(p) for p in planned]
+            scheds = [build_batch_schedule(prog) for prog in planned]
             self.timings["batch_schedule_s"] = time.perf_counter() - t0
         elif self.spec.exec_backend == "overlap":
-            oscheds = [build_overlap_schedule(p) for p in planned]
+            oscheds = [build_overlap_schedule(prog) for prog in planned]
             self.timings["overlap_schedule_s"] = time.perf_counter() - t0
-        if self.protocol == "ckks":
-            outputs = self._execute_ckks(planned, scheds, oscheds)
-        elif real:
-            outputs = self._execute_gc(planned, scheds, oscheds, digest)
-        else:
-            outputs = self._execute_plaintext(planned, scheds, oscheds)
+        try:
+            t0 = time.perf_counter()
+            fx.connect()
+            self.timings["connect_s"] = time.perf_counter() - t0
+            drivers = self._run(planned, ddef, fx, scheds, oscheds, digest)
+            if fx.distributed:
+                # hold the process until every peer has drained its traffic
+                t0 = time.perf_counter()
+                fx.barrier()
+                self.timings["barrier_s"] = time.perf_counter() - t0
+            self.transport_stats = fx.stats()
+        finally:
+            fx.close()
+        self._collect(drivers, name, digest)
+        outputs: dict[int, np.ndarray] = {}
+        for r in sorted(drivers):
+            outputs.update(getattr(drivers[r], "outputs", {}))
         if check:
             check_outputs(self.workload, self.spec.n, outputs,
                           **self._extra())
         return outputs
 
-    def _run(self, progs: list[Program], drivers: list, batched_cls,
-             scheds, oscheds, transport: InprocTransport) -> None:
-        """Run one engine per driver over ``transport``: the driver of
-        global rank ``party * p + worker`` is ``drivers[rank]`` and runs
-        ``progs[worker]`` with a ``PartyView`` of its party's ranks.  A
-        driver goes through ``batched_cls(driver)`` when there is a batch
-        or an overlap schedule (the overlap loop batches its local groups
-        through it), and runs as it is on the scalar loop.  Each engine
-        gets a fresh storage of the spec's kind for the pages its program
-        writes out; the storages are built inside the execute time and
-        closed at its end, also when a run fails."""
+    def _run(self, planned: list[Program], ddef: DriverDef, fx: Fabric,
+             scheds, oscheds, digest: bool) -> dict[int, ProtocolDriver]:
+        """Build the hosted ranks' drivers and run one engine each: rank
+        ``party * p + worker`` runs ``planned[worker]`` with a
+        ``PartyView`` of its party's ranks.  A driver goes through the
+        batched driver when there is a batch or an overlap schedule (the
+        overlap loop batches its local groups through it), and runs as it
+        is on the scalar loop.  Each engine gets a fresh storage of the
+        spec's kind for the pages its program writes out; the storages
+        are built inside the execute time and closed at its end, also when
+        a run fails.  Key generation (a CKKS driver's context) counts in
+        ``execute_s``, as it runs inside the reference's execute too;
+        ``keygen_s`` is its share."""
         p = self.spec.num_workers
         wrap = scheds is not None or oscheds is not None
         t0 = time.perf_counter()
         try:
+            drivers = ddef.factory(self, fx, digest)
+            if self.protocol == "ckks":
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.timings["keygen_s"] = time.perf_counter() - t0
             jobs = []
-            for rank, drv in enumerate(drivers):
+            for rank in sorted(drivers):
+                drv = drivers[rank]
                 party, wk = divmod(rank, p)
-                prog = progs[wk]
+                prog = planned[wk]
                 storage = STORAGES[self.spec.storage](
                     swapped_pages(prog), (prog.page_slots, drv.lane),
                     drv.dtype, self.device)
                 self.storages.append(storage)
                 jobs.append(EngineJob(
-                    prog, batched_cls(drv) if wrap else drv, self.device,
+                    prog, ddef.batched(drv) if wrap else drv, self.device,
                     storage, scheds[wk] if scheds else None,
                     tag=f"party{party}/worker{wk}",
-                    net=PartyView(transport, party * p, p),
+                    net=fx.view(rank, party * p, p),
                     overlap_schedule=oscheds[wk] if oscheds else None))
-            self.engines = run_engines(jobs, transport)
+            self.hosted = sorted(drivers)
+            self.engines = run_engines(jobs, fx)
             self.engine_stats = [e.stats for e in self.engines]
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         finally:
-            transport.close()
             for storage in self.storages:
                 storage.close()
         self.timings["execute_s"] = time.perf_counter() - t0
-        self.transport_stats = transport.stats()
+        return drivers
 
-    def _execute_gc(self, planned: list[Program], scheds, oscheds,
-                    digest: bool) -> dict[int, np.ndarray]:
-        """Two parties of p workers: garbler worker k is rank k, evaluator
-        worker k rank p + k, and each pair has its own party link."""
-        dev = self.device
-        w, n, p = self.workload, self.spec.n, self.spec.num_workers
-        transport = InprocTransport(2 * p)
-        chans = [PartyChannel(transport, src=k, dst=p + k, digest=digest)
-                 for k in range(p)]
-        gds = [GarblerDriver(chans[k], dev, w.inputs(n, k, p),
-                             seed=GARBLER_SEED) for k in range(p)]
-        eds = [EvaluatorDriver(chans[k], dev, w.inputs(n, k, p))
-               for k in range(p)]
-        self._run(planned, gds + eds, BatchedGCDriver, scheds, oscheds,
-                  transport)
-        self.gate_counts = [_sum_counts(d.gates.counts for d in ds)
-                            for ds in (gds, eds)]
-        if digest:
-            self.table_digests = {(c.src, c.dst): c.table_digest()
-                                  for c in chans}
-            self.table_digest = chans[0].table_digest() if p == 1 else \
-                hashlib.sha256("".join(self.table_digests[c.src, c.dst]
-                                       for c in chans).encode()).hexdigest()
-        return _merged(eds)
-
-    def _execute_plaintext(self, planned: list[Program], scheds, oscheds
-                           ) -> dict[int, np.ndarray]:
-        """One party of p engines, in the clear."""
-        w, n, p = self.workload, self.spec.n, self.spec.num_workers
-        drvs = [PlaintextDriver(w.inputs(n, k, p)) for k in range(p)]
-        self._run(planned, drvs, BatchedPlaintextDriver, scheds, oscheds,
-                  InprocTransport(p))
-        return _merged(drvs)
-
-    def _execute_ckks(self, planned: list[Program], scheds, oscheds
-                      ) -> dict[int, np.ndarray]:
-        """One party of p engines.  Key generation (each driver's context)
-        counts in ``execute_s``, as it runs inside the reference's execute
-        too; ``keygen_s`` is its share."""
-        dev = self.device
-        w, n, p = self.workload, self.spec.n, self.spec.num_workers
-        t0 = time.perf_counter()
-        drvs = [CkksDriver(self.ckks_params(),
-                           w.inputs(n, k, p, **self._extra()),
-                           seed=CKKS_SEED, device=dev) for k in range(p)]
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self.timings["keygen_s"] = time.perf_counter() - t0
-        self._run(planned, drvs, BatchedCkksDriver, scheds, oscheds,
-                  InprocTransport(p))
-        self.timings["execute_s"] += self.timings["keygen_s"]
-        self.ckks_counts, self.op_counts = {}, {}
-        for d in drvs:
-            for k, v in d.ctx.counts.items():
-                self.ckks_counts[k] = self.ckks_counts.get(k, 0) + v
-            for op, v in d.op_counts.items():
-                self.op_counts[op.name] = self.op_counts.get(op.name, 0) + v
-        return _merged(drvs)
+    def _collect(self, drivers: dict[int, ProtocolDriver], name: str,
+                 digest: bool) -> None:
+        """The protocol's records of the hosted drivers."""
+        p = self.spec.num_workers
+        if name == "gc-2party":
+            self.gate_counts = [
+                _sum_counts(d.gates.counts for r, d in drivers.items()
+                            if r // p == party) for party in (0, 1)]
+            chans = [drivers[r].gates.ch for r in sorted(drivers) if r < p]
+            if digest:
+                self.table_digests = {(c.src, c.dst): c.table_digest()
+                                      for c in chans}
+                ds = [self.table_digests[k] for k in sorted(
+                    self.table_digests)]
+                self.table_digest = None if len(ds) < p else ds[0] \
+                    if p == 1 else hashlib.sha256(
+                        "".join(ds).encode()).hexdigest()
+        elif name == "ckks":
+            self.ckks_counts, self.op_counts = {}, {}
+            for d in drivers.values():
+                for k, v in d.ctx.counts.items():
+                    self.ckks_counts[k] = self.ckks_counts.get(k, 0) + v
+                for op, v in d.op_counts.items():
+                    self.op_counts[op.name] = \
+                        self.op_counts.get(op.name, 0) + v
 
 
 def _sum_counts(counts) -> GateCounts:
@@ -436,11 +700,3 @@ def _sum_counts(counts) -> GateCounts:
         total.xors += c.xors
         total.consts += c.consts
     return total
-
-
-def _merged(drivers) -> dict[int, np.ndarray]:
-    """The outputs of every driver that has them, in rank order."""
-    out: dict[int, np.ndarray] = {}
-    for d in drivers:
-        out.update(d.outputs)
-    return out

@@ -1,9 +1,10 @@
 """MAGE bytecode: the instruction stream the planner operates on.
 
-The port's own copy of ``repro.core.bytecode`` (in-memory programs and
-the fixed-width record codec; the on-disk program files wait for the
-streaming planner).  Opcode numbers and the record layout are the JAX
-package's, so a record array encoded by either side decodes on the other.
+The port's own copy of ``repro.core.bytecode``: in-memory programs, the
+fixed-width record codec and the on-disk program files of saved plans
+(``ProgramWriter`` / ``ProgramFile``).  Opcode numbers, the record layout
+and the file format are the JAX package's, so a record array or a program
+file written by either side reads on the other.
 
 Following §4.2 of the paper, each instruction is a *high-level* DSL
 operation (integer add, compare-exchange, ...), not a gate and not a raw
@@ -17,8 +18,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import json
+import os
 import struct
-from typing import Iterator, Sequence
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 
@@ -50,7 +53,7 @@ class Op(enum.IntEnum):
     REDUCE_ADD = 25
     REVERSE = 26       # outs[0] = ins[0] with element order reversed (free)
 
-    # ---- Shamir and CKKS ops (their drivers wait for later slices) ---------
+    # ---- Shamir and CKKS ops (the Shamir driver waits for a later slice) --
     F_ADD = 50
     F_SUB = 51
     F_MULC = 52
@@ -77,7 +80,7 @@ class Op(enum.IntEnum):
     ISSUE_SWAP_OUT = 75   # imm=(vpage, pf_slot)                     [async write]
     FINISH_SWAP_OUT = 76  # imm=(pf_slot,)                           [wait]
 
-    # ---- network directives (multi-worker jobs wait for a later slice) ----
+    # ---- network directives (distributed-memory model, §5.1) --------------
     NET_SEND = 80
     NET_RECV = 81
     NET_BARRIER = 82
@@ -152,7 +155,14 @@ def strip_frees(instrs: Sequence[Instr]) -> list[Instr]:
 
 
 # ---------------------------------------------------------------------------
-# Fixed-width instruction records (the JAX package's on-disk layout).
+# Fixed-width instruction records and program files (the JAX package's
+# on-disk format).
+#
+# A program file is a small self-describing header followed by fixed-width
+# 152-byte instruction records:
+#
+#   header:  MAGIC(8) | u32 json_len | json (page_shift, protocol, phase, ...)
+#   records: n x RECORD_WORDS little-endian int64
 #
 # Record layout (int64 words):
 #   word 0          op | n_outs<<16 | n_ins<<20 | n_imm<<24 | float_mask<<28
@@ -162,6 +172,7 @@ def strip_frees(instrs: Sequence[Instr]) -> list[Instr]:
 #                   their IEEE-754 pattern, flagged in float_mask
 # ---------------------------------------------------------------------------
 
+FILE_MAGIC = b"MAGEBC01"
 MAX_OUTS = 2
 MAX_INS = 4
 MAX_IMM = 6
@@ -169,9 +180,13 @@ _OUT_OFF = 1
 _IN_OFF = _OUT_OFF + 2 * MAX_OUTS
 _IMM_OFF = _IN_OFF + 2 * MAX_INS
 RECORD_WORDS = _IMM_OFF + MAX_IMM
+RECORD_BYTES = RECORD_WORDS * 8
 DEFAULT_CHUNK_INSTRS = 8192
 
 _REC_DTYPE = np.dtype("<i8")
+
+_HEADER_FIELDS = ("page_shift", "protocol", "phase", "worker", "num_workers",
+                  "vspace_slots", "num_frames", "prefetch_slots")
 
 
 def unpack_heads(w0: np.ndarray) -> tuple[np.ndarray, ...]:
@@ -276,3 +291,153 @@ def iter_record_chunks(prog: Program, chunk_instrs: int | None = None, *,
         yield s, rec, sub
     if cache:
         prog._rec_chunk_cache = (chunk_instrs, recs)
+
+
+class ProgramWriter:
+    """Append-only writer of a program file: records are buffered and
+    written as encoded chunks; ``meta`` must be JSON-serializable."""
+
+    def __init__(self, path: str | os.PathLike, *, page_shift: int,
+                 protocol: str, phase: str = "virtual", worker: int = 0,
+                 num_workers: int = 1, vspace_slots: int = 0,
+                 num_frames: int = 0, prefetch_slots: int = 0,
+                 meta: dict | None = None,
+                 chunk_instrs: int = DEFAULT_CHUNK_INSTRS):
+        self.path = os.fspath(path)
+        self.chunk_instrs = chunk_instrs
+        self.num_records = 0
+        self._buf: list[Instr] = []
+        header = {"page_shift": page_shift, "protocol": protocol,
+                  "phase": phase, "worker": worker,
+                  "num_workers": num_workers, "vspace_slots": vspace_slots,
+                  "num_frames": num_frames, "prefetch_slots": prefetch_slots,
+                  "record_words": RECORD_WORDS, "meta": meta or {}}
+        payload = json.dumps(header).encode()
+        self._f = open(self.path, "wb")
+        self._f.write(FILE_MAGIC)
+        self._f.write(struct.pack("<I", len(payload)))
+        self._f.write(payload)
+
+    def append(self, instr: Instr) -> None:
+        self._buf.append(instr)
+        if len(self._buf) >= self.chunk_instrs:
+            self._flush()
+
+    def extend(self, instrs: Iterable[Instr]) -> None:
+        for i in instrs:
+            self.append(i)
+
+    def _flush(self) -> None:
+        if self._buf:
+            self._f.write(encode_chunk(self._buf).tobytes())
+            self.num_records += len(self._buf)
+            self._buf.clear()
+
+    def close(self) -> "ProgramFile":
+        self._flush()
+        self._f.close()
+        return ProgramFile(self.path)
+
+    def __enter__(self) -> "ProgramWriter":
+        return self
+
+    def __exit__(self, exc_type, *exc) -> None:
+        if exc_type is None:
+            self.close()
+        else:
+            self._f.close()
+
+
+class ProgramFile:
+    """A program on disk: the header fields of a ``Program``, its ``meta``
+    and chunked record access.  The engine and the schedule builders take
+    an in-memory ``Program``: :meth:`read_program` materializes one."""
+
+    def __init__(self, path: str | os.PathLike):
+        self.path = os.fspath(path)
+        with open(self.path, "rb") as f:
+            if f.read(8) != FILE_MAGIC:
+                raise ValueError(f"not a MAGE bytecode file: {self.path}")
+            (jlen,) = struct.unpack("<I", f.read(4))
+            header = json.loads(f.read(jlen))
+        self._data_off = 12 + jlen
+        data_bytes = os.path.getsize(self.path) - self._data_off
+        if header.get("record_words") != RECORD_WORDS:
+            raise ValueError(
+                f"record width mismatch: file has {header.get('record_words')}"
+                f" words, reader expects {RECORD_WORDS}")
+        if data_bytes % RECORD_BYTES:
+            raise ValueError(f"truncated bytecode file: {self.path}")
+        self.num_records = data_bytes // RECORD_BYTES
+        for k in _HEADER_FIELDS:
+            setattr(self, k, header[k])
+        self.meta: dict = header.get("meta", {})
+
+    @property
+    def page_slots(self) -> int:
+        return 1 << self.page_shift
+
+    def num_vpages(self) -> int:
+        return (self.vspace_slots + self.page_slots - 1) >> self.page_shift
+
+    def __len__(self) -> int:
+        return self.num_records
+
+    def iter_chunks(self, chunk_instrs: int = DEFAULT_CHUNK_INSTRS,
+                    reverse: bool = False
+                    ) -> Iterator[tuple[int, np.ndarray]]:
+        """Yield (start_record_index, [m, RECORD_WORDS] array) windows."""
+        n = self.num_records
+        starts = range(0, n, chunk_instrs)
+        if reverse:
+            starts = reversed(starts)
+        with open(self.path, "rb") as f:
+            for s in starts:
+                m = min(chunk_instrs, n - s)
+                f.seek(self._data_off + s * RECORD_BYTES)
+                raw = f.read(m * RECORD_BYTES)
+                yield s, np.frombuffer(raw, dtype=_REC_DTYPE).reshape(
+                    m, RECORD_WORDS)
+
+    def iter_instrs(self, chunk_instrs: int = DEFAULT_CHUNK_INSTRS
+                    ) -> Iterator[Instr]:
+        for _, arr in self.iter_chunks(chunk_instrs):
+            yield from decode_chunk(arr)
+
+    def read_program(self) -> Program:
+        """Materialize the whole file as an in-memory ``Program``."""
+        return Program(instrs=list(self.iter_instrs()),
+                       page_shift=self.page_shift, protocol=self.protocol,
+                       phase=self.phase, worker=self.worker,
+                       num_workers=self.num_workers,
+                       vspace_slots=self.vspace_slots,
+                       num_frames=self.num_frames,
+                       prefetch_slots=self.prefetch_slots,
+                       meta=dict(self.meta))
+
+
+def writer_like(src: Program | ProgramFile, path: str | os.PathLike, *,
+                phase: str | None = None, num_frames: int | None = None,
+                prefetch_slots: int | None = None, meta: dict | None = None,
+                chunk_instrs: int = DEFAULT_CHUNK_INSTRS) -> ProgramWriter:
+    """A ProgramWriter with ``src``'s header fields, some overridden."""
+    return ProgramWriter(
+        path, page_shift=src.page_shift, protocol=src.protocol,
+        phase=src.phase if phase is None else phase,
+        worker=src.worker, num_workers=src.num_workers,
+        vspace_slots=src.vspace_slots,
+        num_frames=src.num_frames if num_frames is None else num_frames,
+        prefetch_slots=(src.prefetch_slots if prefetch_slots is None
+                        else prefetch_slots),
+        meta=dict(src.meta) if meta is None else meta,
+        chunk_instrs=chunk_instrs)
+
+
+def write_program(prog: Program, path: str | os.PathLike,
+                  strip_free: bool = False,
+                  chunk_instrs: int = DEFAULT_CHUNK_INSTRS) -> ProgramFile:
+    """Serialize an in-memory Program; ``strip_free=True`` drops the FREE
+    pseudo-instructions."""
+    w = writer_like(prog, path, chunk_instrs=chunk_instrs)
+    w.extend(strip_frees(prog.instrs) if strip_free else prog.instrs)
+    return w.close()

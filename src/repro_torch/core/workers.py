@@ -11,7 +11,8 @@ processes (programs and plan reports are picklable).
 
 ``run_engines`` is the single place that spawns engine threads and
 collects their errors: the Session builds one :class:`EngineJob` per
-(party, worker) and hands them here.
+(party, worker) rank this process hosts (all of them, or one in a
+fleet) and hands them here with the fabric they share.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from .bytecode import Op, Program
 from .dsl import Value, trace
 from .engine import Engine, ProtocolDriver
 from .planner import PlanConfig, PlanReport, plan
-from .transport import InprocTransport, PartyView
+from .transport import Fabric, PartyView
 
 
 @dataclasses.dataclass
@@ -139,13 +140,13 @@ class EngineJob:
     overlap_schedule: Any = None
 
 
-def run_engines(jobs: Sequence[EngineJob],
-                transport: InprocTransport) -> list[Engine]:
-    """Run one Engine per job, each on its own thread, over ``transport``
-    (every party's workers and every party link); return the engines
-    (their ``stats``, and their ``memory`` as the run left it) or
-    re-raise failures.  Each engine holds the transport's baton while it
-    runs (``core.transport``).  Once an engine has failed, the transport
+def run_engines(jobs: Sequence[EngineJob], fabric: Fabric) -> list[Engine]:
+    """Run one Engine per job, each on its own thread, over ``fabric``
+    (the hosted ranks' transports: every party's workers and every party
+    link); return the engines (their ``stats``, and their ``memory`` as
+    the run left it) or re-raise failures.  Each engine holds the
+    fabric's baton while it runs (``core.transport``): one baton for all
+    the transports of the process.  Once an engine has failed, the fabric
     closes, so that its peers stop waiting for messages that will never
     come."""
     results: list[Engine | None] = [None] * len(jobs)
@@ -153,7 +154,7 @@ def run_engines(jobs: Sequence[EngineJob],
 
     def _run(k: int, job: EngineJob) -> None:
         try:
-            with transport.baton:
+            with fabric.baton:
                 eng = Engine(job.program, job.driver, job.device,
                              job.storage, job.batch_schedule, net=job.net,
                              overlap_schedule=job.overlap_schedule)
@@ -161,7 +162,7 @@ def run_engines(jobs: Sequence[EngineJob],
                 results[k] = eng
         except Exception as e:  # surfaced below
             errors.append((job.tag if job.tag is not None else k, e))
-            transport.close()
+            fabric.close()
 
     threads = [threading.Thread(target=_run, args=(k, job), daemon=True)
                for k, job in enumerate(jobs)]

@@ -23,7 +23,7 @@ import hashlib
 import numpy as np
 import torch
 
-from ...core.transport import InprocTransport, TransportError
+from ...core.transport import Transport, TransportError
 from ...kernels import to_device
 from ...kernels.garble import ops as garble_ops
 
@@ -57,7 +57,7 @@ class PartyChannel:
     #: sends; the timeout turns that deadlock into an error
     RECV_TIMEOUT_S = 600.0
 
-    def __init__(self, transport: InprocTransport, src: int = 0,
+    def __init__(self, transport: Transport, src: int = 0,
                  dst: int = 1, digest: bool = False):
         self.transport = transport
         self.src = src

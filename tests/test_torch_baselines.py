@@ -391,7 +391,7 @@ def _cli_json(capsys, argv) -> dict:
 
 
 def test_cli_unbounded(capsys):
-    got = _cli_json(capsys, ["run", "--workload", "merge", "-n", "32",
+    got = _cli_json(capsys, ["exec", "--workload", "merge", "-n", "32",
                              "--real", "--check", "--device", "cpu"])
     spec = Session(JobSpec("merge", n=32, plan_mode="unbounded"),
                    device="cpu").trace()[0]
@@ -403,7 +403,7 @@ def test_cli_unbounded(capsys):
 
 def test_cli_knobs(capsys):
     got = _cli_json(capsys, [
-        "run", "--workload", "rmvmul", "-n", "4", "--budget", "3",
+        "exec", "--workload", "rmvmul", "-n", "4", "--budget", "3",
         "--prefetch", "1", "--policy", "lru", "--swap-bypass",
         "--exec-backend", "scalar", "--storage", "memmap", "--check",
         "--device", "cpu"])
@@ -416,7 +416,7 @@ def test_cli_knobs(capsys):
 
 
 def test_cli_refuses_budget_with_unbounded(capsys):
-    argv = ["run", "--workload", "rmvmul", "-n", "4", "--mode", "unbounded",
+    argv = ["exec", "--workload", "rmvmul", "-n", "4", "--mode", "unbounded",
             "--budget", "4", "--device", "cpu"]
     assert cli.main(argv) == 2
     assert "no memory_budget" in capsys.readouterr().err

@@ -346,7 +346,7 @@ def test_ring_1024_job_on_cpu():
 
 
 def test_cli_runs_ckks_without_real(capsys):
-    argv = ["run", "--workload", "rsum", "-n", "4", "--budget", "4",
+    argv = ["exec", "--workload", "rsum", "-n", "4", "--budget", "4",
             "--check", "--device", "cpu"]
     assert cli.main(argv) == 0
     text = capsys.readouterr().out

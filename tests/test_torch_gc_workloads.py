@@ -286,7 +286,7 @@ def test_multi_worker_traces_name_their_roadmap_item(wl):
 
 
 def test_cli_runs_new_workloads_in_the_clear(capsys):
-    assert cli.main(["run", "--workload", "mvmul", "-n", "32", "--budget",
+    assert cli.main(["exec", "--workload", "mvmul", "-n", "32", "--budget",
                      "4", "--prefetch", "1", "--check", "--device",
                      "cpu"]) == 0
     out = capsys.readouterr().out

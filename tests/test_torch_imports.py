@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX or the JAX package, and ``chip_smoke.py``
-refuses to report a result without a card or without the repository."""
+"""The port stands alone: no module of ``src/repro_torch``, nor
+``chip_smoke.py`` nor a script under ``tools/``, imports JAX or the JAX
+package, and ``chip_smoke.py`` refuses to report a result without a card
+or without the repository."""
 
 import ast
 import os
@@ -18,7 +19,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + \
+        sorted((REPO / "tools").glob("*.py"))
 
 
 @pytest.mark.parametrize("path", _sources(),

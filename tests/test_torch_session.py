@@ -48,7 +48,7 @@ def test_session_matches_reference(reference):
 
 
 def test_cli_run_on_cpu(capsys):
-    argv = ["run", "--workload", "merge", "-n", "32", "--budget", "6",
+    argv = ["exec", "--workload", "merge", "-n", "32", "--budget", "6",
             "--prefetch", "1", "--check", "--device", "cpu"]
     assert cli.main(argv) == 0                     # the plaintext oracle
     assert '"driver": "gc-plaintext"' in capsys.readouterr().out

@@ -153,7 +153,7 @@ def test_four_workers_overlap_from_the_api_and_the_cli(capsys):
     s.execute(check=True)
     assert [e.posted_recvs for e in s.engine_stats] == [3, 0, 0, 0]
     assert s.transport_stats and all(k[1] == 0 for k in s.transport_stats)
-    argv = ["run", "--workload", "merge", "-n", "256", "--workers", "4",
+    argv = ["exec", "--workload", "merge", "-n", "256", "--workers", "4",
             "--budget", "0.4", "--prefetch", "16", "--exec-backend",
             "overlap", "--check", "--device", "cpu"]
     assert cli.main(argv) == 0
