@@ -40,9 +40,9 @@ in full float32.  Phases, each raising on failure:
 6. ckks parity   rmvmul n=4 and rstats n=8 at rings 128 and 1024 on the
                  card equal their device="cpu" runs: decoded outputs and
                  the final engine memory, bit for bit;
-7. main          the planned two-party merge at n=16384 records per party,
-                 checked against the oracle, every AND gate through the
-                 kernels;
+7. main          the planned two-party merge at n=8192 records per party
+                 (Fig. 8's 16384 cut to fit the time limit), checked
+                 against the oracle, every AND gate through the kernels;
 8. ckks main     rmvmul n=24 at ring 1024, levels 2, budget 0.4, 8
                  prefetch pages, checked against the oracle (atol 2e-2),
                  with the plan's 646/309 swaps and every transform and
@@ -60,18 +60,20 @@ in full float32.  Phases, each raising on failure:
                  of both; the CKKS main job planned and unbounded in
                  turns, three rounds; each eviction policy (min_clean,
                  lru, fifo, min with swap bypass, lru without prefetch)
-                 at merge n=1024 and the CKKS main job, swap counts equal
+                 at merge n=512 and the CKKS main job, swap counts equal
                  to the JAX package's plans; the scalar engine loop
-                 against the batched one (and merge n=1024 unbounded on
+                 against the batched one (and merge n=512 unbounded on
                  both) and the swap file against pinned pages on the same
                  jobs; card against CPU for unbounded and scalar CKKS
-                 jobs at rings 128 and 1024 and an unbounded merge n=256;
+                 jobs at rings 128 and 1024 and an unbounded merge n=256
+                 (the CPU runs in a process of their own, started at the
+                 top);
                  both main jobs unbounded under torch.profiler (the busy
                  share);
 10. gc workloads (after the baselines) the rest of the GC workloads and
                  the apps, two-party on the batched loop, each checked
-                 against its oracle: ljoin n=256, mvmul n=192 and
-                 binfclayer n=1024 at budget 0.4 with 64 prefetch pages
+                 against its oracle: ljoin n=128, mvmul n=192 and
+                 binfclayer n=512 at budget 0.4 with 64 prefetch pages
                  (binfclayer also unbounded), sort n=16384 unbounded and
                  n=512 planned (8 prefetch pages), passreuse n=1024, pir
                  n=256 at ring 1024; every AND gate through the half-gates
@@ -86,7 +88,7 @@ in full float32.  Phases, each raising on failure:
 11. workers      multi-worker jobs and the overlap backend at Fig. 10's
                  four workers a party, each checked against its oracle
                  beside the one-worker job of the same n: two-party merge
-                 n=16384 unbounded (batched), n=2048 planned at 0.4 with
+                 n=1024 unbounded (batched), n=2048 planned at 0.4 with
                  16 prefetch pages (batched) and unbounded on the batched
                  and the overlap loop; rsum n=256 and rmvmul n=24 at ring 1024
                  planned (lookahead 100, 16 prefetch pages) and unbounded
@@ -106,22 +108,41 @@ in full float32.  Phases, each raising on failure:
                  the garbler's table digest equal to the in-process card
                  run); the unbounded merge n=4096 as two processes (the
                  party link's bytes over TCP), equal to the same job run
-                 in this process; the unbounded merge n=2048
+                 in this process; the unbounded merge n=1024
                  at four workers a party as eight processes and at one as
                  two, beside the workers phase's in-process runs of the
                  same jobs; rsum n=256 at four
                  workers, ring 1024, as four processes (NTT launches equal
                  to the in-process run's);
-13. record       each kernel timed at each path's launch sizes, beside
+13. streaming    plans made out of core (``plan_mode="streaming"``) and
+                 run from their memory-program files, each checked against
+                 its oracle and held to its memory-mode run of this call:
+                 the parity merge n=256 and the sync-swap job on the
+                 batched loop (the file's records digest equals the
+                 in-memory plan's; outputs, AND count, swaps and the
+                 garbler's table digest equal the parity phase's card
+                 runs); the CKKS main job from its file (646/309
+                 swaps, outputs bit for bit and NTT launches equal to the
+                 ckks main phase's); ljoin n=128 at budget 0.4 with 64
+                 prefetch pages (ANDs and swaps equal to the gc workloads
+                 phase's); GC main's plan made out of core equal to the
+                 records the main phase ran (plan, annotate s, the
+                 planner's tracemalloc peak); and Fig. 8's streaming case,
+                 merge n=131072 written by the vectorized trace and
+                 planned file to file in a process of its own started at
+                 the top (its memory program above the reference's 8 MiB
+                 planner cap, the planner's peak under half of it, its
+                 records those of the DSL trace's in-memory plan);
+14. record       each kernel timed at each path's launch sizes, beside
                  its bound, its plain version and (the product) the
                  PyTorch expression, with the host's time per wrapper call
                  and the empty kernel; the NTT kernels also at 4096 rows,
                  with a host breakdown of a wrapper call; the fused kernel
                  over its launch shapes, beside the three standalone
                  launches each one replaces, timed at the same sizes;
-14. profile      the GC path's shape at n=512 and the CKKS main job under
+15. profile      the GC path's shape at n=256 and the CKKS main job under
                  torch.profiler: device time by op, and the busy share;
-15. attn kernels the paged-attention kernels (split and combine) against
+16. attn kernels the paged-attention kernels (split and combine) against
                  their plain version on the card (rtol 1e-4, atol 1e-5),
                  f32 and bf16 pages: the JAX package's test shapes, qwen2's
                  head shape at batch 1 and 8 (ragged lengths, permuted
@@ -130,26 +151,26 @@ in full float32.  Phases, each raising on failure:
                  over host tables and over tables prepared with 2-page
                  chunks, stablelm-3b's heads (head_dim 80) and a group of
                  16;
-16. serve parity reduced qwen2 in f32 with nonzero biases served on the
+17. serve parity reduced qwen2 in f32 with nonzero biases served on the
                  card equals the same run with device="cpu": greedy tokens,
                  and teacher-forced logits within relative 1e-4, for the
                  paged and the contiguous decode;
-17. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
+18. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
                  run_server with the paged decode: 4 requests of 200-token
                  prompts, 64 new tokens each, every decode attention through
                  the kernels (252 steps x 28 layers wrapper calls, the
                  tables prepared once a step), held against the contiguous
                  decode teacher-forced on its tokens;
-18. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
+19. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
                  64 prompt tokens and 8 new ones, paged (7 steps x 32
                  layers wrapper calls) against its contiguous decode;
-19. attn record  a wrapper call timed at the main path's lengths and at the
+20. attn record  a wrapper call timed at the main path's lengths and at the
                  32768-token batch: device time summed over the kernels it
                  launches (split and combine also apart, profiler), the
                  host's time per call over prepared and over host tables
                  (events), beside the bound, the plain version and gather +
                  scaled_dot_product_attention;
-20. serve profile a few decode steps of the serve main job under
+21. serve profile a few decode steps of the serve main job under
                  torch.profiler: device time by op and the busy share.
 
 The last four lines are a JSON summary of the run's headline numbers, the
@@ -159,6 +180,7 @@ card's name and power limit, the kernels' JSON record and
 
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import functools
@@ -180,7 +202,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.api import JobSpec, Session, check_outputs  # noqa: E402
+from repro_torch.api import (JobSpec, Session, check_outputs,  # noqa: E402
+                             resolve_plan_config)
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.kernels.garble import kernel as gk, ops, ref  # noqa: E402
 from repro_torch.kernels.ntt import kernel as nk  # noqa: E402
@@ -190,13 +213,19 @@ from repro_torch.kernels.paged_attn import ops as pops  # noqa: E402
 from repro_torch.kernels.paged_attn import ref as pref  # noqa: E402
 from repro_torch.launch.serve import paged_cache, run_server  # noqa: E402
 from repro_torch.models import init_lm, lm_decode, lm_prefill  # noqa: E402
-from repro_torch.core.bytecode import Op  # noqa: E402
+from repro_torch.core.bytecode import (Op, ProgramFile,  # noqa: E402
+                                       encode_chunk, iter_instructions)
+from repro_torch.core.liveness import (file_digest,  # noqa: E402
+                                       records_digest,
+                                       working_set_pages_stream)
+from repro_torch.core.planner import plan, plan_streaming  # noqa: E402
 from repro_torch.core.engine import SWAP_DIRECTIVES  # noqa: E402
 from repro_torch.core.transport import aggregate_links  # noqa: E402
 from repro_torch.protocols.ckks import cipher as ck  # noqa: E402
 from repro_torch.protocols.ckks.driver import homomorphic_ops  # noqa: E402
 from repro_torch.protocols.ckks.params import CkksParams  # noqa: E402
 from repro_torch.serve.serve_step import Request, serve_step  # noqa: E402
+from repro_torch.workloads import fast_trace  # noqa: E402
 from repro_torch.workloads import get as get_workload  # noqa: E402
 
 #: H100 SXM peaks: HBM3 bandwidth (NVIDIA data sheet), and 32-bit
@@ -677,16 +706,20 @@ def _gate_timing(name: str, a, b, r, tab, reps: int) -> dict:
 # the jobs
 # ---------------------------------------------------------------------------
 
-#: the main path: the JAX package's Fig. 8 merge case (benchmarks/fig8_swap.py)
-MAIN = dict(n=16384, memory_budget=0.4, lookahead=10_000, prefetch_pages=64)
+#: the main path: the JAX package's Fig. 8 merge case
+#: (benchmarks/fig8_swap.py), its n = 16384 cut to 8192 so that the whole
+#: script stays well inside its time limit on a slow host (the main phase
+#: took 235 s at 16384: its swap directives stop batching, so it runs at
+#: the host's pace per AND call)
+MAIN = dict(n=8192, memory_budget=0.4, lookahead=10_000, prefetch_pages=64)
 #: small enough to run on the CPU too, with a budget that forces swaps
 PARITY = dict(n=256, memory_budget=0.4, lookahead=10_000, prefetch_pages=8)
 #: no prefetch buffer: the plan keeps synchronous SWAP_IN / SWAP_OUT
 SYNC_SWAPS = dict(PARITY, memory_budget=12, prefetch_pages=0)
 #: the main path's shape at a thirty-second of its size, run under the
-#: profiler (whose trace processing grows with the launches): 0.4 of its
-#: working set as a frame count, 14 frames of which 3 prefetch
-PROFILED = dict(n=512, memory_budget=14, lookahead=10_000, prefetch_pages=3)
+#: profiler (whose trace processing grows with the launches: 42 s at
+#: n = 512): 14 frames of which 3 prefetch, 41 swaps each way
+PROFILED = dict(n=256, memory_budget=14, lookahead=10_000, prefetch_pages=3)
 
 
 def _run(job: dict, device, digest: bool = False):
@@ -701,6 +734,17 @@ def _swaps(s) -> tuple[int, int, int, int]:
     return (sum(e.swap_ins for e in st), sum(e.swap_outs for e in st),
             sum(e.io_read_bytes for e in st),
             sum(e.io_write_bytes for e in st))
+
+
+def program_digest(prog) -> int:
+    """``records_digest`` of a program's records, in memory or in a file:
+    equal iff the records are (chunk-size independent)."""
+    if isinstance(prog, ProgramFile):
+        return file_digest(prog)
+    d = 0
+    for i in range(0, len(prog.instrs), 8192):
+        d = records_digest(d, encode_chunk(prog.instrs[i:i + 8192]), i)
+    return d
 
 
 def parity_cpu() -> dict:
@@ -729,14 +773,21 @@ def phase_parity(dev, cpu: dict) -> dict:
         f"CPU ({t_c:.2f} s): {len(out_g)} outputs, {ands[0]} ANDs, table "
         f"sha256 {gpu.table_digest[:16]}, swaps in/out "
         f"{_swaps(gpu)[:2]}")
-    sync, _, t_s = _run(SYNC_SWAPS, dev)
+    sync, sync_out, t_s = _run(SYNC_SWAPS, dev)
     if _swaps(sync)[0] == 0 or sync.plan_reports[0].schedule.prefetched:
         raise AssertionError("the synchronous-swap job made no sync swaps")
     log(f"sync swaps: merge n={SYNC_SWAPS['n']} with SWAP_IN/SWAP_OUT only, "
         f"on the card ({t_s:.2f} s), checked against the oracle; swaps "
         f"in/out {_swaps(sync)[:2]}")
-    # the card's run, which the fleet phase's saved-plan job is held to
-    ref = {"outputs": out_g, "ands": ands, "digest": gpu.table_digest}
+    # the card's runs, which the fleet phase's saved-plan job and the
+    # streaming phase's streamed plans are held to
+    ref = {"outputs": out_g, "ands": ands, "digest": gpu.table_digest,
+           "swaps": list(_swaps(gpu)[:2]),
+           "plan_digest": program_digest(gpu.plan()[0]),
+           "sync": {"outputs": sync_out,
+                    "ands": [g.ands for g in sync.gate_counts],
+                    "swaps": list(_swaps(sync)[:2]),
+                    "plan_digest": program_digest(sync.plan()[0])}}
     return {"card_s": t_g, "cpu_s": t_c, "sync_card_s": t_s}, ref
 
 
@@ -778,7 +829,8 @@ def phase_main(dev) -> tuple[dict, dict, dict]:
                "table_bytes": table_bytes, "swaps": [ins, outs],
                "swap_bytes": [rbytes, wbytes],
                "frame_bytes": s.engine_stats[0].frame_bytes,
-               "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+               "plan_digest": program_digest(s.plan()[0])}
     return counts, metrics, out
 
 
@@ -1261,8 +1313,9 @@ def expected_ntt_launches(s, levels: int) -> dict:
                          f"on each instruction's level")
     fused = 0
     for prog, eng in zip(s.plan(), s.engines):   # every worker's engine
-        ops_ = [ins.op for ins in prog.instrs]
-        n_in = sum(1 for ins in prog.instrs
+        instrs = list(iter_instructions(prog))   # a program or its file
+        ops_ = [ins.op for ins in instrs]
+        n_in = sum(1 for ins in instrs
                    if ins.op == Op.INPUT and ins.imm[1] != 1)
         mul_nr = ops_.count(Op.CT_MUL_NR)
         sched = eng.overlap_schedule or eng.batch_schedule
@@ -1301,9 +1354,9 @@ def _ckks_checked_run(spec: dict, dev) -> tuple:
     return s, out, seconds, counts
 
 
-def phase_ckks_main(dev) -> tuple[dict, dict]:
-    """The CKKS main path; returns the NTT kernels' counts from its run
-    and its end-to-end metrics."""
+def phase_ckks_main(dev) -> tuple[dict, dict, dict]:
+    """The CKKS main path; returns the NTT kernels' counts from its run,
+    its end-to-end metrics and its outputs."""
     torch.cuda.reset_peak_memory_stats(dev)
     s, out, seconds, counts = _ckks_checked_run(CKKS_MAIN, dev)
     rep = s.plan_reports[0].replacement
@@ -1347,7 +1400,7 @@ def phase_ckks_main(dev) -> tuple[dict, dict]:
                          "instructions": st2.instructions,
                          "swaps": [st2.swap_ins, st2.swap_outs],
                          "rows": c2["rows"]}
-    return counts, metrics
+    return counts, metrics, out
 
 
 def _ntt_work(kind: str, rows: int, n: int) -> tuple[int, int]:
@@ -1666,18 +1719,18 @@ MAIN_UNBOUNDED = dict(n=MAIN["n"], plan_mode="unbounded")
 CKKS_UNBOUNDED = dict(workload="rmvmul", n=CKKS_MAIN["n"],
                       plan_mode="unbounded", ckks_ring=1024, ckks_levels=2)
 #: the policies' GC job: the main job's shape at a sixteenth of its size
-POLICY_GC = dict(n=1024, memory_budget=0.4, lookahead=10_000,
+POLICY_GC = dict(n=512, memory_budget=0.4, lookahead=10_000,
                  prefetch_pages=4)
 #: (policy, swap_bypass, prefetch pages or None for the job's) -> the JAX
 #: package's scalar-core plan of POLICY_GC and of CKKS_MAIN: (swap-ins,
 #: swap-outs, prefetched, bypass hits)
 POLICY_PLANS = {
-    ("min", False, None): ((363, 363, 363, 0), (646, 309, 646, 0)),
-    ("min_clean", False, None): ((363, 363, 363, 0), (646, 309, 646, 0)),
-    ("lru", False, None): ((533, 533, 533, 0), (908, 390, 908, 0)),
-    ("fifo", False, None): ((533, 533, 533, 0), (1004, 486, 1004, 0)),
-    ("min", True, None): ((363, 363, 358, 5), (646, 309, 640, 6)),
-    ("lru", False, 0): ((531, 531, 0, 0), (861, 365, 0, 0)),
+    ("min", False, None): ((176, 176, 176, 0), (646, 309, 646, 0)),
+    ("min_clean", False, None): ((176, 176, 176, 0), (646, 309, 646, 0)),
+    ("lru", False, None): ((235, 235, 235, 0), (908, 390, 908, 0)),
+    ("fifo", False, None): ((235, 235, 235, 0), (1004, 486, 1004, 0)),
+    ("min", True, None): ((176, 176, 172, 4), (646, 309, 640, 6)),
+    ("lru", False, 0): ((233, 233, 0, 0), (861, 365, 0, 0)),
 }
 #: card-against-CPU jobs of the new path: the ckks parity phase's rmvmul
 #: jobs unbounded, and on the scalar loop at their budgets
@@ -1820,7 +1873,7 @@ def _baseline_policies(dev) -> tuple[dict, tuple]:
         if prefetch is not None:
             knobs["prefetch_pages"] = prefetch
         gc = _gc_checked_run({**POLICY_GC, **knobs}, dev)
-        _check_plan(gc[0], gc_want, f"merge n=1024 {name}")
+        _check_plan(gc[0], gc_want, f"merge n={POLICY_GC['n']} {name}")
         ck = _ckks_checked_run({**CKKS_MAIN, **knobs}, dev)
         _check_plan(ck[0], ck_want, f"ckks main {name}")
         if (policy, bypass, prefetch) == ("min", False, None):
@@ -1829,7 +1882,8 @@ def _baseline_policies(dev) -> tuple[dict, tuple]:
                       "gc_execute_s": gc[0].timings["execute_s"],
                       "ckks_swaps": list(ck_want),
                       "ckks_execute_s": ck[0].timings["execute_s"]}
-        log(f"baselines: {name}: merge n=1024 swaps (in, out, prefetched, "
+        log(f"baselines: {name}: merge n={POLICY_GC['n']} swaps (in, out, "
+            f"prefetched, "
             f"bypassed) {gc_want}, execute {rows[name]['gc_execute_s']:.3f}"
             f" s; ckks main {ck_want}, execute "
             f"{rows[name]['ckks_execute_s']:.3f} s; outputs checked")
@@ -1916,36 +1970,60 @@ def _baseline_memmap(dev, gc_min: tuple, ckks_planned: tuple) -> dict:
     return res
 
 
-def _baseline_parity(dev) -> dict:
-    """The new path on the card against device="cpu", bit for bit."""
+def _baseline_parity_runs(device) -> dict:
+    """The new path's parity jobs on ``device``: the CKKS jobs with their
+    final engine memory, the unbounded merge with its AND counts and table
+    digest."""
     res = {}
     for wl, n, ring, knobs in BASELINE_PARITY:
-        spec = dict(workload=wl, n=n, ckks_ring=ring, **knobs)
-        gpu, out_g, t_g = _ckks_job(spec, dev)
-        cpu, out_c, t_c = _ckks_job(spec, "cpu")
-        what = f"{wl} ring {ring} {knobs}"
-        if not _same(out_g, out_c):
-            raise AssertionError(f"{what}: card and CPU outputs differ")
-        if not torch.equal(gpu.engines[0].memory.cpu(),
-                           cpu.engines[0].memory):
-            raise AssertionError(f"{what}: card and CPU engine memory "
-                                 f"differ")
-        res[f"{wl}-{ring}-{knobs.get('plan_mode', 'scalar')}"] = \
-            {"card_s": t_g, "cpu_s": t_c}
+        s, out, t = _ckks_job(dict(workload=wl, n=n, ckks_ring=ring,
+                                   **knobs), device)
+        res[f"{wl}-{ring}-{knobs.get('plan_mode', 'scalar')}"] = {
+            "outputs": out, "memory": _memory_digest(s), "s": t}
     job = dict(PARITY, memory_budget=None, prefetch_pages=0,
                plan_mode="unbounded")
-    gpu, out_g, t_g = _run(job, dev, digest=True)
-    cpu, out_c, t_c = _run(job, "cpu", digest=True)
-    _no_swaps(gpu)
-    if not _same(out_g, out_c) or gpu.table_digest != cpu.table_digest or \
-            [g.ands for g in gpu.gate_counts] != \
-            [g.ands for g in cpu.gate_counts]:
-        raise AssertionError("unbounded merge: card and CPU differ")
-    res["merge-unbounded"] = {"card_s": t_g, "cpu_s": t_c}
+    s, out, t = _run(job, device, digest=True)
+    _no_swaps(s)
+    res["merge-unbounded"] = {"outputs": out, "digest": s.table_digest,
+                              "ands": [g.ands for g in s.gate_counts],
+                              "s": t}
+    return res
+
+
+def baseline_parity_cpu() -> dict:
+    """The baselines phase's parity jobs with device="cpu", what the card's
+    runs are held to.  ``main`` runs them in a process of its own (one
+    thread) from the top, and the baselines phase collects them."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    res = _baseline_parity_runs("cpu")
+    res["cpu_s"] = time.perf_counter() - t0
+    return res
+
+
+def _baseline_parity(dev, cpu) -> dict:
+    """The new path on the card against device="cpu", bit for bit (the
+    CPU's runs from ``cpu``, an async result of baseline_parity_cpu)."""
+    got = _baseline_parity_runs(dev)
+    want = cpu.get()
+    res = {}
+    for key, g in got.items():
+        w = want[key]
+        if not _same(g["outputs"], w["outputs"]):
+            raise AssertionError(f"{key}: card and CPU outputs differ")
+        if key == "merge-unbounded":
+            if g["digest"] != w["digest"] or g["ands"] != w["ands"]:
+                raise AssertionError("unbounded merge: card and CPU differ")
+        elif g["memory"] != w["memory"]:
+            raise AssertionError(f"{key}: card and CPU engine memory "
+                                 f"differ")
+        res[key] = {"card_s": g["s"], "cpu_s": w["s"]}
     log(f"baselines parity: rmvmul n=4 unbounded and scalar at rings 128 "
         f"and 1024 (outputs and final engine memory), merge n={PARITY['n']} "
-        f"unbounded (outputs, ANDs, table sha256 {gpu.table_digest[:16]}): "
-        f"card == CPU")
+        f"unbounded (outputs, ANDs, table sha256 "
+        f"{got['merge-unbounded']['digest'][:16]}): card == CPU (the CPU's "
+        f"runs took {want['cpu_s']:.1f} s in their own process)")
+    res["cpu_s"] = want["cpu_s"]
     return res
 
 
@@ -1977,14 +2055,15 @@ def _baseline_profile(dev) -> dict:
     return res
 
 
-def phase_baselines(dev, main_out: dict, planned: dict) -> dict:
-    """The paper's baselines on the card, beside the planned main jobs."""
+def phase_baselines(dev, main_out: dict, planned: dict, cpu) -> dict:
+    """The paper's baselines on the card, beside the planned main jobs;
+    ``cpu`` is the async result of baseline_parity_cpu."""
     res = {"gc_main": _baseline_gc_main(dev, main_out, planned)}
     res["ckks_main"], ckks_planned = _baseline_ckks_turns(dev)
     res["policies"], gc_min = _baseline_policies(dev)
     res["scalar"] = _baseline_scalar(dev, gc_min, ckks_planned)
     res["memmap"] = _baseline_memmap(dev, gc_min, ckks_planned)
-    res["parity"] = _baseline_parity(dev)
+    res["parity"] = _baseline_parity(dev, cpu)
     res["profile"] = _baseline_profile(dev)
     return res
 
@@ -2003,13 +2082,16 @@ GC_PLAN = dict(memory_budget=0.4, lookahead=10_000, prefetch_pages=64)
 #: batched loop, cut so that the whole script stays under 1000 s (it took
 #: 1000.4 s at full size): passreuse from 2048 to 1024, sort planned from
 #: 1024 to 512, mvmul from 384 to 192; and, to make room for the workers
-#: phase, binfclayer from 2048 to 1024, planned and unbounded (its ops
-#: batch in neither plan); sort unbounded at its Fig. 8 size (planned there
+#: and the streaming phases, binfclayer from 2048 to 512, planned and
+#: unbounded (its ops batch in neither plan; at 512 its plan still
+#: swaps), and ljoin from 256 to 128 (its plan swaps 360/360 a party; the
+#: streaming phase runs the same job from its file); sort
+#: unbounded at its Fig. 8 size (planned there
 #: it would make about 12 million AND calls a kernel) and planned with 8
 #: prefetch pages: 64 ask for 72 frames, above its working set
-GC_JOBS = [("ljoin", 256, GC_PLAN), ("mvmul", 192, GC_PLAN),
-           ("binfclayer", 1024, GC_PLAN),
-           ("binfclayer", 1024, dict(plan_mode="unbounded")),
+GC_JOBS = [("ljoin", 128, GC_PLAN), ("mvmul", 192, GC_PLAN),
+           ("binfclayer", 512, GC_PLAN),
+           ("binfclayer", 512, dict(plan_mode="unbounded")),
            ("sort", 16384, dict(plan_mode="unbounded")),
            ("sort", 512, dict(GC_PLAN, prefetch_pages=8)),
            ("passreuse", 1024, GC_PLAN)]
@@ -2270,11 +2352,15 @@ W_CKKS_PLAN = dict(memory_budget=0.4, lookahead=100, prefetch_pages=16,
 W_CKKS_UNBOUNDED = dict(plan_mode="unbounded", ckks_ring=1024, ckks_levels=2)
 UNBOUNDED = dict(plan_mode="unbounded")
 W_LOOPS = ("batched", "overlap")
+#: Fig. 10's merge n = 16384 unbounded, cut to 1024 so that the whole
+#: script stays well inside its time limit on a slow host (at 16384 its
+#: p = 4 run took 69.5 s); the fleet phase runs the same jobs as fleets
+FIG10_N = 1024
 #: (workload, n, plan, workers, loops): every job checked against its
 #: oracle, each p = 4 job beside the p = 1 job of the same n and plan.
-#: merge at Fig. 10's n = 16384 unbounded on the batched loop; its
-#: overlap run is cut to Fig. 10's tiny n = 2048 (91.6 s at n = 16384,
-#: to make room for the fleet phase); planned it is cut to n = 2048
+#: merge at FIG10_N unbounded on the batched loop; at Fig. 10's tiny
+#: n = 2048 unbounded on both loops (91.6 s at n = 16384 on the overlap
+#: loop); planned it is cut to n = 2048
 #: (benchmarks/fig10_parallel.py:29) on the batched loop only (its
 #: overlap run is the parity job's): NET directives and swap directives
 #: are barriers to exec.batching, so the planned program batches almost
@@ -2282,8 +2368,8 @@ W_LOOPS = ("batched", "overlap")
 #: with it at n = 4096 on both loops); sort n = 8192 and mvmul n = 384
 #: are cut for time
 WORKER_JOBS = [
-    ("merge", 16384, UNBOUNDED, WORKERS, ("batched",)),
-    ("merge", 16384, UNBOUNDED, 1, ("batched",)),
+    ("merge", FIG10_N, UNBOUNDED, WORKERS, ("batched",)),
+    ("merge", FIG10_N, UNBOUNDED, 1, ("batched",)),
     ("merge", 2048, W_GC_PLAN, WORKERS, ("batched",)),
     ("merge", 2048, UNBOUNDED, WORKERS, W_LOOPS),
     ("merge", 2048, W_GC_PLAN, 1, ("batched",)),
@@ -2499,13 +2585,11 @@ def phase_workers(dev) -> tuple[dict, dict, dict]:
 #: evaluator process; GC main's unbounded job as a two-rank fleet (the
 #: party link over TCP), cut to n = 4096 and held to the same job run in
 #: process; Fig. 10's merge at four workers a party as an 8-rank fleet
-#: and at one worker as a 2-rank fleet, cut to n = 2048 (the workers
-#: phase's n = 2048 jobs beside them); and rsum at four workers, ring
-#: 1024, as a 4-rank fleet.  The cuts are the issue's, in its order: at
-#: n = 16384 the 8-rank fleet took 211 s (the in-process run 53 s), and
-#: with it at n = 2048 the phase still took 125 s, 19 s of them the
-#: two-rank fleet at n = 16384
-FIG10_N = 2048
+#: and at one worker as a 2-rank fleet, at FIG10_N (the workers phase's
+#: jobs of that n beside them); and rsum at four workers, ring 1024, as a
+#: 4-rank fleet.  At n = 16384 the 8-rank fleet took 211 s (the
+#: in-process run 53 s), at n = 2048 43.5 s; the two-rank fleet took 19 s
+#: at n = 16384
 FLEET_TCP = dict(n=4096, plan_mode="unbounded")
 FLEET_JOBS = [
     ("saved-plan", ["--workload", "merge", "-n", str(PARITY["n"]),
@@ -2727,6 +2811,249 @@ def phase_fleet(dev, parity_ref: dict, workers: dict
     log(f"fleet: the phase's launches over every rank: garble_and "
         f"{gc['garble_launches']}, eval_and {gc['eval_launches']}; NTT "
         f"{ntt['launches']}")
+    return out, gc, ntt
+
+
+# ---------------------------------------------------------------------------
+# the streaming planner and executor: plans made out of core, run from files
+# ---------------------------------------------------------------------------
+
+#: Fig. 8's streaming case (benchmarks/fig8_swap.py:35-38): merge past the
+#: planner's cap, planned out of core at Fig. 8's budget; host work only
+STREAM_CASE = dict(n=131072, memory_budget=0.4, lookahead=10_000,
+                   prefetch_pages=64)
+#: the reference's planner memory cap (benchmarks/common.py), which
+#: Fig. 8's streaming case's memory program must exceed
+PLANNER_CAP_MB = 8.0
+#: the GC workload streamed: the gc workloads phase's ljoin, cut from its
+#: Fig. 8 size (256, benchmarks/fig8_swap.py:30) to 128 there and here,
+#: so that the whole script stays under its time limit
+STREAM_LJOIN = ("ljoin", 128, GC_PLAN)
+
+
+def streaming_case() -> dict:
+    """Fig. 8's streaming case on the host (``main`` starts it in a
+    process of its own at the top and the streaming phase collects it):
+    the vectorized trace of merge n=131072 written as a file, its working
+    set from the file, then ``plan_streaming`` at 0.4 of it with 64
+    prefetch pages, file to file under tracemalloc; then the DSL trace of
+    the same n planned in memory, whose records the file must hold.  All
+    files live in a temporary directory, removed at the end."""
+    import tempfile
+    torch.set_num_threads(1)
+    spec = JobSpec("merge", **STREAM_CASE)
+    res = {"n": spec.n}
+    with tempfile.TemporaryDirectory(prefix="mage_stream_") as tmp:
+        t0 = time.perf_counter()
+        vpf = fast_trace.write_merge_program(
+            os.path.join(tmp, "virtual.bc"), spec.n)
+        res["trace_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ws = working_set_pages_stream(vpf)
+        res["working_set_s"] = time.perf_counter() - t0
+        cfg = resolve_plan_config(spec, ws)
+        t0 = time.perf_counter()
+        mem, rep = plan_streaming(vpf, cfg, workdir=tmp, track_memory=True)
+        res.update(
+            plan_s=time.perf_counter() - t0, annotate_s=rep.annotate_s,
+            replacement_s=rep.replacement_s, scheduling_s=rep.scheduling_s,
+            peak_mem_bytes=rep.peak_mem_bytes, working_set=ws,
+            num_frames=cfg.num_frames, prefetch_pages=cfg.prefetch_pages,
+            virtual_records=len(vpf),
+            virtual_bytes=os.path.getsize(vpf.path),
+            program_bytes=os.path.getsize(mem.path), instructions=len(mem),
+            swaps=[rep.replacement.swap_ins, rep.replacement.swap_outs],
+            digest=file_digest(mem))
+        t0 = time.perf_counter()
+        prog = get_workload("merge").trace(spec.n, 1)[0]
+        res["dsl_digest"] = program_digest(plan(prog, cfg)[0])
+        res["dsl_s"] = time.perf_counter() - t0
+    return res
+
+
+def _streamed(wl: str, job: dict, dev, digest: bool = False) -> dict:
+    """One GC job planned out of core (its memory programs are files in
+    the Session's temporary directory, removed at its close) and run from
+    its files, two-party on the batched loop, checked against the
+    oracle."""
+    spec = JobSpec(wl, **job, plan_mode="streaming", track_plan_memory=True)
+    with Session(spec, device=dev) as s:
+        t0 = time.perf_counter()
+        out = s.execute(real=True, check=True, digest=digest)
+        seconds = time.perf_counter() - t0
+        planned = s.plan()
+        if not all(isinstance(p, ProgramFile) for p in planned):
+            raise AssertionError(f"{wl} streamed: the plan is not files")
+        st = s.engine_stats
+        res = {"outputs": out, "ands": [g.ands for g in s.gate_counts],
+               "digest": s.table_digest, "swaps": list(_swaps(s)[:2]),
+               "party_swaps": [st[0].swap_ins, st[0].swap_outs],
+               "plan_digest": file_digest(planned[0]), "s": seconds,
+               "execute_s": s.timings["execute_s"],
+               "plan_s": s.timings["plan_s"],
+               "annotate_s": s.timings["annotate_s"],
+               "peak_mem_bytes": s.timings["peak_mem_bytes"],
+               "program_bytes": os.path.getsize(planned[0].path),
+               "instructions": len(planned[0])}
+        tmp = s._tmpdir
+    if tmp is None or os.path.exists(tmp):
+        raise AssertionError(f"{wl} streamed: the plan's directory stayed")
+    log(f"streaming: {wl} n={job['n']} on the batched loop from its "
+        f"memory-program file ({res['instructions']} records, "
+        f"{res['program_bytes']} bytes), two-party, checked against the "
+        f"oracle: {seconds:.2f} s (plan {res['plan_s']:.3f}, annotate "
+        f"{res['annotate_s']:.3f}, execute {res['execute_s']:.3f}); planner "
+        f"peak {res['peak_mem_bytes']} bytes; {res['ands'][0]} ANDs; swaps "
+        f"in/out {res['swaps']}")
+    return res
+
+
+def _held_to(got: dict, want: dict, what: str, keys) -> None:
+    if not _same(got["outputs"], want["outputs"]):
+        raise AssertionError(f"streaming {what}: outputs differ")
+    for k in keys:
+        if got[k] != want[k]:
+            raise AssertionError(f"streaming {what}: {k} {got[k]} != "
+                                 f"{want[k]}")
+
+
+def phase_streaming(dev, parity_ref: dict, ckks_ref: tuple, gc_ref: dict,
+                    main_digest: int, case) -> tuple[dict, dict, dict]:
+    """Plans made out of core and run from their files on the card, each
+    held to its memory-mode run of this call: the parity merge and the
+    sync-swap job on the batched loop (plan records, outputs, ANDs, swaps,
+    and the parity merge's table digest: the parity phase's card runs),
+    the CKKS main job (its swaps, outputs bit for bit and NTT launches),
+    ljoin at its Fig. 8 size (the gc workloads phase's ANDs and swaps);
+    GC main's plan made out of core (the records the main phase ran); and
+    Fig. 8's streaming case from the process ``case`` (its planner
+    checks).  The half gates' counters are set to 0 just before the first
+    streamed run and read after the last GC run, the NTT counters around
+    the CKKS run; every AND gate and NTT goes through the kernels.
+    Returns the metrics and both counts."""
+    out = {}
+    ands = [0, 0]
+    ops.reset_counts()
+    for name, job, want in (("parity", PARITY, parity_ref),
+                            ("sync swaps", SYNC_SWAPS, parity_ref["sync"])):
+        got = _streamed("merge", job, dev, digest=True)
+        keys = ["plan_digest", "ands", "swaps"] + \
+            (["digest"] if "digest" in want else [])
+        _held_to(got, want, name, keys)
+        ands = [ands[0] + got["ands"][0], ands[1] + got["ands"][1]]
+        out[name] = {k: got[k] for k in (
+            "s", "execute_s", "plan_s", "annotate_s", "peak_mem_bytes",
+            "program_bytes", "swaps")}
+        log(f"streaming: {name} merge n={job['n']} streamed == its memory "
+            f"plan (records digest {want['plan_digest']:#x}) and the parity "
+            f"phase's card run: outputs, {want['ands'][0]} ANDs, swaps "
+            f"{want['swaps']}"
+            + (f", the garbler's table digest {want['digest'][:16]}"
+               if "digest" in want else ""))
+    wl, n, gplan = STREAM_LJOIN
+    got = _streamed(wl, dict(n=n, **gplan), dev)
+    ref = gc_ref[f"{wl}-{n}-memory"]
+    if got["ands"][0] != ref["ands"] or got["party_swaps"] != ref["swaps"]:
+        raise AssertionError(f"streaming {wl}: ANDs {got['ands'][0]}, swaps "
+                             f"{got['party_swaps']} != the gc workloads "
+                             f"phase's {ref['ands']}, {ref['swaps']}")
+    ands = [ands[0] + got["ands"][0], ands[1] + got["ands"][1]]
+    out[f"{wl}-{n}"] = {k: got[k] for k in (
+        "s", "execute_s", "plan_s", "annotate_s", "peak_mem_bytes",
+        "program_bytes", "swaps")}
+    out[f"{wl}-{n}"]["memory_mode_execute_s"] = ref["execute_s"]
+    gc = ops.counts()
+    if [gc["garble_ands"], gc["eval_ands"]] != ands or not ands[0]:
+        raise AssertionError(f"ANDs through the kernels {gc} != gate counts "
+                             f"{ands}")
+    # the CKKS main job from its file: the ckks main phase's run
+    ckks_counts, ckks_out = ckks_ref
+    spec = dict(CKKS_MAIN, plan_mode="streaming", track_plan_memory=True)
+    s, cout, seconds, ntt = _ckks_checked_run(spec, dev)
+    try:
+        rep = s.plan_reports[0].replacement
+        st = s.engine_stats[0]
+        swaps = (st.swap_ins, st.swap_outs)
+        if (rep.swap_ins, rep.swap_outs) != CKKS_MAIN_SWAPS or \
+                swaps != CKKS_MAIN_SWAPS:
+            raise AssertionError(f"streaming ckks: swaps {swaps} != "
+                                 f"{CKKS_MAIN_SWAPS}")
+        if not isinstance(s.plan()[0], ProgramFile):
+            raise AssertionError("streaming ckks: the plan is not a file")
+        if not _same(cout, ckks_out):
+            raise AssertionError("streaming ckks: outputs differ from the "
+                                 "ckks main phase's")
+        if ntt["launches"] != ckks_counts["launches"]:
+            raise AssertionError(f"streaming ckks: launches "
+                                 f"{ntt['launches']} != the ckks main "
+                                 f"phase's {ckks_counts['launches']}")
+        t = s.timings
+        out["ckks"] = {"s": seconds, "execute_s": t["execute_s"],
+                       "plan_s": t["plan_s"], "annotate_s": t["annotate_s"],
+                       "peak_mem_bytes": t["peak_mem_bytes"],
+                       "program_bytes": os.path.getsize(s.plan()[0].path),
+                       "swaps": list(swaps), "launches": ntt["launches"]}
+    finally:
+        s.close()
+    log(f"streaming: ckks rmvmul n={CKKS_MAIN['n']} at ring 1024 from its "
+        f"file: {len(cout)} outputs bit for bit the ckks main phase's, swaps "
+        f"{swaps}, launches {ntt['launches']}; {seconds:.2f} s (plan "
+        f"{t['plan_s']:.3f}, execute {t['execute_s']:.3f}); planner peak "
+        f"{t['peak_mem_bytes']} bytes, program "
+        f"{out['ckks']['program_bytes']} bytes")
+    # GC main's plan out of core: the records the main phase ran
+    spec = JobSpec("merge", **MAIN, plan_mode="streaming",
+                   track_plan_memory=True)
+    with Session(spec, device=dev) as s:
+        t0 = time.perf_counter()
+        mem = s.plan()[0]
+        seconds = time.perf_counter() - t0
+        d = file_digest(mem)
+        t = s.timings
+        out["gc_main_plan"] = {
+            "s": seconds, "trace_s": t["trace_s"], "plan_s": t["plan_s"],
+            "annotate_s": t["annotate_s"],
+            "peak_mem_bytes": t["peak_mem_bytes"],
+            "program_bytes": os.path.getsize(mem.path),
+            "instructions": len(mem)}
+    if d != main_digest:
+        raise AssertionError(f"streaming gc main: plan digest {d:#x} != the "
+                             f"main phase's {main_digest:#x}")
+    g = out["gc_main_plan"]
+    log(f"streaming: gc main merge n={MAIN['n']} planned out of core == the "
+        f"plan the main phase ran (digest {d:#x}, {g['instructions']} "
+        f"records, {g['program_bytes']} bytes): trace {g['trace_s']:.3f} s, "
+        f"plan {g['plan_s']:.3f} s under tracemalloc (annotate "
+        f"{g['annotate_s']:.3f}), planner peak {g['peak_mem_bytes']} bytes")
+    # Fig. 8's streaming case, planned in its own process meanwhile
+    c = case.get()
+    cap = PLANNER_CAP_MB * 2**20
+    if not c["program_bytes"] > cap:
+        raise AssertionError(f"streaming case: program {c['program_bytes']} "
+                             f"bytes within the {PLANNER_CAP_MB} MiB cap")
+    if not c["peak_mem_bytes"] < c["program_bytes"] / 2:
+        raise AssertionError(f"streaming case: planner peak "
+                             f"{c['peak_mem_bytes']} not under half the "
+                             f"program's {c['program_bytes']} bytes")
+    if c["digest"] != c["dsl_digest"]:
+        raise AssertionError("streaming case: the file's records != the "
+                             "in-memory plan of the DSL trace")
+    out["case"] = c
+    log(f"streaming: Fig. 8's case merge n={c['n']} planned out of core in "
+        f"its own process: virtual {c['virtual_records']} records "
+        f"({c['virtual_bytes']} bytes, vectorized trace {c['trace_s']:.3f} "
+        f"s), working set {c['working_set']} pages, {c['num_frames']} "
+        f"frames ({c['prefetch_pages']} prefetch); memory program "
+        f"{c['instructions']} records, {c['program_bytes']} bytes (> "
+        f"{PLANNER_CAP_MB} MiB cap); plan {c['plan_s']:.3f} s under "
+        f"tracemalloc (annotate {c['annotate_s']:.3f}, replacement "
+        f"{c['replacement_s']:.3f}, scheduling {c['scheduling_s']:.3f}); "
+        f"planner peak {c['peak_mem_bytes']} bytes (< half the program); "
+        f"swaps {c['swaps']}; == the DSL trace's in-memory plan "
+        f"({c['dsl_s']:.3f} s)")
+    out["launches"] = {"garble_and": gc["garble_launches"],
+                       "eval_and": gc["eval_launches"],
+                       "ntt": ntt["launches"]}
     return out, gc, ntt
 
 
@@ -3397,6 +3724,15 @@ def main() -> None:
         log(f"[{name}: {phases[name]:.2f} s]")
         return out
 
+    # Fig. 8's streaming case, host work only, in a process of its own
+    # until the streaming phase collects it
+    case_pool = multiprocessing.get_context("spawn").Pool(1)
+    atexit.register(case_pool.terminate)      # also when a phase fails
+    case = case_pool.apply_async(streaming_case)
+    # the baselines phase's CPU runs, likewise
+    base_pool = multiprocessing.get_context("spawn").Pool(1)
+    atexit.register(base_pool.terminate)
+    base_cpu = base_pool.apply_async(baseline_parity_cpu)
     # the parity job's CPU run, in a process of its own meanwhile
     with multiprocessing.get_context("spawn").Pool(1) as pool:
         cpu_parity = pool.apply_async(parity_cpu)
@@ -3410,26 +3746,34 @@ def main() -> None:
     ckks_parity = timed("ckks parity", phase_ckks_parity, dev)
     serve_parity = timed("serve parity", phase_serve_parity, dev)
     counts, metrics, main_out = timed("main", phase_main, dev)
-    ntt_counts, ckks_metrics = timed("ckks main", phase_ckks_main, dev)
+    ntt_counts, ckks_metrics, ckks_out = timed("ckks main", phase_ckks_main,
+                                               dev)
     attn_counts, serve_metrics, model = timed("serve main", phase_serve_main,
                                               dev)
     stablelm = timed("serve stablelm", phase_serve_stablelm, dev)
     # after the serve phases, which so run in the process as they did
     # before the baselines existed
-    baselines = timed("baselines", phase_baselines, dev, main_out, metrics)
+    with base_pool:
+        baselines = timed("baselines", phase_baselines, dev, main_out,
+                          metrics, base_cpu)
     del main_out
     gc_workloads, gc_counts, pir_counts = timed(
         "gc workloads", phase_gc_workloads, dev)
     workers, w_counts, w_ntt = timed("workers", phase_workers, dev)
     fleet, f_counts, f_ntt = timed("fleet", phase_fleet, dev, parity_ref,
                                    workers)
-    del parity_ref
+    with case_pool:
+        streaming, s_counts, s_ntt = timed(
+            "streaming", phase_streaming, dev, parity_ref,
+            (ntt_counts, ckks_out), gc_workloads["jobs"],
+            metrics["plan_digest"], case)
+    del parity_ref, ckks_out
     rows, gate_launch = timed("record", kernel_record, dev, {
         "gc main": counts, "gc workloads": gc_counts, "workers": w_counts,
-        "fleet": f_counts}, errs)
+        "fleet": f_counts, "streaming": s_counts}, errs)
     ntt_rows, ntt_big = timed("ntt record", ntt_record, dev, {
         "ckks main": ntt_counts, "gc workloads": pir_counts,
-        "workers": w_ntt, "fleet": f_ntt}, ntt_errs)
+        "workers": w_ntt, "fleet": f_ntt, "streaming": s_ntt}, ntt_errs)
     attn_row, attn_timing = timed("attn record", attn_record, dev,
                                   attn_counts, attn_err)
     profiled = timed("profile", phase_profile, dev)
@@ -3447,6 +3791,7 @@ def main() -> None:
         "serve_stablelm": stablelm,
         "serve_profile": serve_profiled, "baselines": baselines,
         "gc_workloads": gc_workloads, "workers": workers, "fleet": fleet,
+        "streaming": streaming,
         "phases_s": phases,
         "total_s": time.perf_counter() - t_all}))
     print(smi, flush=True)

@@ -2,7 +2,7 @@
 "plan, then execute", and §5.2's unit of one engine a process).
 
     python -m repro_torch plan --workload merge -n 256 --budget 0.4 \\
-        --prefetch 8 --out job/ [--device cpu]
+        --prefetch 8 --out job/ [--mode memory] [--device cpu]
     python -m repro_torch run job/ --real --check [--device cpu]
     python -m repro_torch run job/ --worker 1 --peers h0:9000,h1:9001 \\
         [--json rank1.json] [--device cpu]
@@ -19,8 +19,11 @@
 ``plan`` traces and plans a job and saves it: ``workerK.memory.bc``
 program files (an unbounded job's traced programs) and a ``job.json``
 manifest, in the JAX package's format, with the spec's hash stamped into
-every program.  ``run`` executes a saved plan, from either package, after
-checking that hash (a mismatch exits 2): every rank in this process by
+every program; as the reference's ``plan`` does, it plans out of core by
+default (``--mode streaming``: the planner writes each memory program
+file to file).  ``run`` executes a saved plan, from either package, after
+checking that hash (a mismatch exits 2), its program files read a chunk
+at a time and never whole: every rank in this process by
 default, over ``--transport`` (inproc, tcp, shaped or shaped+tcp), or
 with ``--worker K --peers ...`` only global rank K (party * workers +
 worker) against peers over TCP.  ``fabric`` launches the whole fleet, one
@@ -31,9 +34,11 @@ timings, swap traffic, the engine's frame bytes, outputs, and for a
 garbled-circuit job run with ``--real`` its AND gates, for a CKKS job its
 instructions, homomorphic ops per second and transforms.
 
-The knobs are the JAX package's: ``--mode`` (memory, or unbounded: the
+The knobs are the JAX package's: ``--mode`` (memory; streaming, the
+same plan made out of core and run from its files; or unbounded: the
 traced program over the whole virtual address space, no budget; the
-default is unbounded without ``--budget``), ``--policy``,
+default is unbounded without ``--budget``, else streaming for ``plan``
+and memory for ``exec``), ``--policy``,
 ``--swap-bypass``, ``--exec-backend`` (batched by default, scalar, or
 overlap), ``--storage`` (ram: pinned host pages, or memmap: a swap file),
 ``--workers`` (engines per party, which exchange values over NET_*
@@ -41,8 +46,7 @@ directives) and ``--parallel`` (how the workers' programs are planned:
 serial, thread or process).  Garbled circuits run with real two-party
 crypto with ``--real``, and otherwise in the clear through the plaintext
 oracle driver; CKKS is real crypto either way.  Every entry point runs on
-the card unless given ``--device cpu``.  The streaming planner waits for
-a later slice.
+the card unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -75,8 +79,9 @@ def _parse_budget(text: str) -> int | float:
     return int(text)
 
 
-def _spec_from_args(args: argparse.Namespace) -> JobSpec:
-    mode = args.mode or ("memory" if args.budget is not None
+def _spec_from_args(args: argparse.Namespace,
+                    default_mode: str = "memory") -> JobSpec:
+    mode = args.mode or (default_mode if args.budget is not None
                          else "unbounded")
     return JobSpec(args.workload, n=args.n, num_workers=args.workers,
                    parallel_plan=args.parallel, memory_budget=args.budget,
@@ -98,13 +103,14 @@ def _links(stats) -> dict:
 
 
 def cmd_plan(args) -> int:
-    spec = _spec_from_args(args)
-    s = Session(spec, device=args.device)
-    manifest = s.save_plan(args.out)
-    for i, prog in enumerate(s.plan()):
-        print(f"worker{i}: {len(prog)} instructions ({prog.phase}) -> "
-              f"{os.path.join(args.out, f'worker{i}.memory.bc')}")
-    print(f"spec hash {s.spec.plan_hash(s.workload)}; manifest: {manifest}")
+    spec = _spec_from_args(args, default_mode="streaming")
+    with Session(spec, device=args.device) as s:
+        manifest = s.save_plan(args.out)
+        for i, prog in enumerate(s.plan()):
+            print(f"worker{i}: {len(prog)} instructions ({prog.phase}) -> "
+                  f"{os.path.join(args.out, f'worker{i}.memory.bc')}")
+        print(f"spec hash {s.spec.plan_hash(s.workload)} "
+              f"({s.spec.plan_mode}); manifest: {manifest}")
     return 0
 
 
@@ -333,8 +339,8 @@ def cmd_exec(args) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    s = Session(spec, device=args.device)
-    out = s.execute(real=args.real, check=args.check)
+    with Session(spec, device=args.device) as s:
+        out = s.execute(real=args.real, check=args.check)
     summary = {
         "device": str(s.device),
         "spec": {"workload": s.spec.workload, "n": s.spec.n,
@@ -383,9 +389,10 @@ def _add_spec_args(p: argparse.ArgumentParser) -> None:
                    "omit for unbounded")
     p.add_argument("--prefetch", type=int, default=0)
     p.add_argument("--lookahead", type=int, default=10_000)
-    p.add_argument("--mode", default=None, choices=("memory", "unbounded"),
-                   help="plan mode (default: memory with --budget, "
-                   "unbounded without)")
+    p.add_argument("--mode", default=None,
+                   choices=("memory", "streaming", "unbounded"),
+                   help="plan mode (default with --budget: streaming for "
+                   "plan, memory for exec; unbounded without)")
     p.add_argument("--policy", default="min",
                    choices=("min", "min_clean", "lru", "fifo"),
                    help="eviction policy")

@@ -32,16 +32,19 @@ digest) is stamped into every program's ``meta``, so a stale or tampered
 plan raises :class:`SpecMismatchError` instead of running.
 
 The knobs are the JAX package's, with its names and values: ``plan_mode``
-"memory" (planned paging at a budget) or "unbounded" (the baseline: the
-traced program over the whole virtual address space); ``policy`` (MIN,
+"memory" (planned paging at a budget, in memory), "streaming" (the same
+plan made out of core, file to file: each worker's memory program is a
+``ProgramFile`` in ``workdir`` or in a temporary directory the Session
+owns and removes on ``close``, and the engine runs it from disk) or
+"unbounded" (the baseline: the traced program over the whole virtual
+address space); ``track_plan_memory`` (the planner's peak, by tracemalloc); ``policy`` (MIN,
 MinClean, LRU, FIFO) and ``swap_bypass``; ``exec_backend`` "batched" (a
 batch schedule, the port's default), "scalar" (one instruction at a
 time; the reference's default) or "overlap" (an overlap schedule: NET
 sends hoisted, receives posted early and completed where needed);
 ``storage`` "ram" (pinned host pages) or "memmap" (a swap file);
 ``num_workers`` and ``parallel_plan`` (serial, thread or process
-planning of the workers' programs).  The streaming planner waits for a
-later slice.
+planning of the workers' programs).
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ import dataclasses
 import hashlib
 import json
 import os
+import shutil
+import tempfile
 import time
 from typing import Callable
 
@@ -58,7 +63,7 @@ import torch
 
 from .core.bytecode import Program, ProgramFile, write_program
 from .core.engine import Engine, EngineStats, ProtocolDriver, swapped_pages
-from .core.liveness import stripped_touches, working_set_pages
+from .core.liveness import working_set_pages_stream
 from .core.planner import PlanConfig, PlanReport
 from .core.replacement import POLICIES
 from .core.storage import MemmapStorage, PinnedStorage
@@ -90,11 +95,11 @@ CKKS_SEED = 0xCEC5
 #: the largest |output - oracle| a CKKS job may show (the JAX package's)
 CKKS_ATOL = 2e-2
 
-#: the JAX package's plan modes and execution backends; those not ported
-#: yet name the ROADMAP item that ports them
+#: the JAX package's plan modes and execution backends; a knob value not
+#: ported yet would name here the ROADMAP item that ports it
 PLAN_MODES = ("memory", "streaming", "unbounded")
 EXEC_BACKENDS = ("scalar", "batched", "overlap")
-NOT_PORTED = {"streaming": "the streaming planner (ROADMAP Queue 1 item 6)"}
+NOT_PORTED: dict[str, str] = {}
 
 #: swap storages by the JAX package's names; "ram" is pinned host memory
 STORAGES = {"ram": PinnedStorage, "memmap": MemmapStorage}
@@ -110,11 +115,13 @@ JOB_FILE = "job.json"
 PLAN_HASH_FIELDS = ("workload", "n", "num_workers", "memory_budget",
                     "lookahead", "prefetch_pages", "policy", "swap_bypass",
                     "ckks_ring", "ckks_levels")
-#: JobSpec fields of the JAX package that steer only its own execution
-#: (its planner and simulator cores, the streaming planner's files): a
-#: manifest it wrote carries them, and the port reads and ignores them
-REFERENCE_ONLY_FIELDS = ("plan_core", "sim_core", "workdir", "chunk_instrs",
-                         "track_plan_memory")
+#: JobSpec fields of the JAX package that leave its results as they are:
+#: which of two cores giving the same results plans and simulates, and the
+#: records a chunk its file stages take.  A manifest it wrote carries them,
+#: and the port reads and ignores them: it plans with the record-array core
+#: (``PlanConfig.core``; the scalar one for a custom eviction policy), in
+#: chunks of ``DEFAULT_CHUNK_INSTRS``
+REFERENCE_ONLY_FIELDS = ("plan_core", "sim_core", "chunk_instrs")
 
 
 class SpecMismatchError(ValueError):
@@ -144,13 +151,15 @@ class JobSpec:
     prefetch_pages: int = 0
     policy: str = "min"
     swap_bypass: bool = False
-    plan_mode: str = "memory"             # memory | unbounded
+    plan_mode: str = "memory"             # memory | streaming | unbounded
     parallel_plan: bool | str = "serial"  # serial | thread | process
     driver: str = "auto"                  # auto -> the protocol's default
     exec_backend: str = "batched"         # batched | scalar | overlap
     storage: str = "ram"                  # ram | memmap
     transport: str = "inproc"             # inproc | tcp | shaped | shaped+tcp
     fabric: FabricSpec | None = None      # endpoint placement, shaping
+    workdir: str | None = None            # streaming plan files live here
+    track_plan_memory: bool = False
     ckks_ring: int | None = None          # CKKS N override (benchmarks)
     ckks_levels: int | None = None
 
@@ -221,15 +230,10 @@ class JobSpec:
 
 
 def load_manifest(jobdir: str | os.PathLike) -> tuple[dict, JobSpec]:
-    """A saved plan's ``job.json`` and its spec.  A manifest that says
-    ``plan_mode="streaming"`` (the JAX package's ``plan`` default) loads
-    as the memory plan it already is: the mode is outside the hash."""
+    """A saved plan's ``job.json`` and its spec."""
     with open(os.path.join(os.fspath(jobdir), JOB_FILE)) as f:
         manifest = json.load(f)
-    d = dict(manifest["spec"])
-    if d.get("plan_mode") == "streaming":
-        d["plan_mode"] = "memory"
-    return manifest, JobSpec.from_dict(d)
+    return manifest, JobSpec.from_dict(manifest["spec"])
 
 
 def resolve_plan_config(spec: JobSpec, working_set: int) -> PlanConfig:
@@ -390,7 +394,12 @@ class Session:
     ``ckks_counts``, the rows of the transforms and modular products the
     job asked for (``ntt_forward``, ``ntt_inverse``, ``mul_mod``; key
     generation included), and ``op_counts``, its instructions by opcode,
-    each summed over the hosted workers."""
+    each summed over the hosted workers.
+
+    A streaming plan with no ``workdir`` lives in a temporary directory
+    the Session owns: use the Session as a context manager (or call
+    :meth:`close`) to remove it, or :meth:`save_plan` to move the
+    program files somewhere durable."""
 
     def __init__(self, spec: JobSpec, device: str | torch.device | None = None,
                  workload: Workload | None = None):
@@ -403,6 +412,7 @@ class Session:
         self._progs: list[Program] | None = None
         self._planned: list[Program] | None = None
         self._ws: dict[int, int] = {}
+        self._tmpdir: str | None = None
         self.configs: list[PlanConfig] = []
         self.plan_reports: list[PlanReport] = []
         self.hosted: list[int] = []
@@ -417,6 +427,18 @@ class Session:
         self.table_digest: str | None = None
         self.ckks_counts: dict[str, int] = {}
         self.op_counts: dict[str, int] = {}
+
+    def close(self) -> None:
+        """Remove the temporary directory of a streaming plan, if any."""
+        if self._tmpdir is not None:
+            shutil.rmtree(self._tmpdir, ignore_errors=True)
+            self._tmpdir = None
+
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     @property
     def protocol(self) -> str:
@@ -438,28 +460,48 @@ class Session:
 
     def trace(self) -> list[Program]:
         """Trace the workload's DSL program, one per worker (placement,
-        §6.1)."""
+        §6.1); the spec's plan hash and the spec are stamped into every
+        program's ``meta``, so the plans made from them carry both."""
         if self._progs is None:
             t0 = time.perf_counter()
-            self._progs = self.workload.trace(self.spec.n,
-                                              self.spec.num_workers,
-                                              **self._extra())
+            progs = self.workload.trace(self.spec.n, self.spec.num_workers,
+                                        **self._extra())
+            h = self.spec.plan_hash(self.workload)
+            for prog in progs:
+                prog.meta["spec_hash"] = h
+                prog.meta["job_spec"] = self.spec.to_dict()
+            self._progs = progs
             self.timings["trace_s"] = time.perf_counter() - t0
         return self._progs
 
     def working_set(self, worker: int = 0) -> int:
         """Peak live pages of one worker's virtual trace (w of §2.4.3)."""
         if worker not in self._ws:
-            prog = self.trace()[worker]
-            self._ws[worker] = working_set_pages(stripped_touches(prog)[1])
+            self._ws[worker] = working_set_pages_stream(self.trace()[worker])
         return self._ws[worker]
 
-    def plan(self) -> list[Program]:
+    def _workdir(self) -> str | None:
+        """Where a streaming plan's files go: the spec's ``workdir``, else
+        a temporary directory this Session owns."""
+        if self.spec.workdir is not None:
+            return self.spec.workdir
+        if self.spec.plan_mode == "streaming":
+            if self._tmpdir is None:
+                self._tmpdir = tempfile.mkdtemp(prefix="mage_job_")
+            return self._tmpdir
+        return None
+
+    def plan(self) -> list[Program | ProgramFile]:
         """Replacement + scheduling of each worker's program under the
         spec's budget, resolved against that worker's working set (§6.1),
-        serially, in threads or in processes (``parallel_plan``).  An
-        unbounded job's "plan" is the traced programs themselves, with
-        empty reports and no configs."""
+        serially, in threads or in processes (``parallel_plan``); in
+        memory, or out of core with ``plan_mode="streaming"`` (memory
+        programs as files, a ``workerK/`` directory each).  An unbounded
+        job's "plan" is the traced programs themselves, with empty
+        reports and no configs.  ``timings`` gains ``annotate_s`` (the
+        streaming planner's next-use pass, summed over the workers) and,
+        with ``track_plan_memory``, ``peak_mem_bytes`` (the largest
+        worker's)."""
         if self._planned is None:
             progs = self.trace()
             if self.spec.plan_mode == "unbounded":
@@ -470,12 +512,21 @@ class Session:
             self.configs = [resolve_plan_config(self.spec,
                                                 self.working_set(w))
                             for w in range(len(progs))]
+            streaming = self.spec.plan_mode == "streaming"
             self._planned, self.plan_reports = plan_workers(
-                progs, self.configs, parallel=self.spec.parallel_plan)
+                progs, self.configs, parallel=self.spec.parallel_plan,
+                streaming=streaming,
+                workdir=self._workdir() if streaming else None,
+                track_memory=self.spec.track_plan_memory)
             self.timings["plan_s"] = time.perf_counter() - t0
+            self.timings["annotate_s"] = sum(r.annotate_s
+                                             for r in self.plan_reports)
+            if self.spec.track_plan_memory:
+                self.timings["peak_mem_bytes"] = max(
+                    r.peak_mem_bytes for r in self.plan_reports)
         return self._planned
 
-    def adopt_plan(self, programs: list[Program]) -> None:
+    def adopt_plan(self, programs: list[Program | ProgramFile]) -> None:
         """Execute these programs, one per worker, instead of planning
         (the JAX package's plan carried over by
         ``interop.program_from_records``, or a saved plan): memory-phase
@@ -494,16 +545,28 @@ class Session:
         ``workerK.memory.bc`` files and a ``job.json`` manifest to
         ``outdir``, in the JAX package's format; returns the manifest's
         path.  Each program's ``meta`` carries the spec's plan hash and
-        the spec itself."""
+        the spec itself.  A streaming plan's files are moved there (they
+        can be far larger than RAM), and the Session runs them from
+        there; in-memory plans are written."""
         outdir = os.fspath(outdir)
         os.makedirs(outdir, exist_ok=True)
         h = self.spec.plan_hash(self.workload)
         names = []
-        for i, prog in enumerate(self.plan()):
-            prog.meta["spec_hash"] = h
-            prog.meta["job_spec"] = self.spec.to_dict()
+        planned = self.plan()
+        for i, prog in enumerate(planned):
             name = f"worker{i}.memory.bc"
-            write_program(prog, os.path.join(outdir, name))
+            dst = os.path.join(outdir, name)
+            if isinstance(prog, ProgramFile):
+                if os.path.abspath(prog.path) != os.path.abspath(dst):
+                    shutil.move(prog.path, dst)
+                    srcdir = os.path.dirname(prog.path)
+                    if not os.listdir(srcdir):
+                        os.rmdir(srcdir)
+                planned[i] = ProgramFile(dst)
+            else:
+                prog.meta["spec_hash"] = h
+                prog.meta["job_spec"] = self.spec.to_dict()
+                write_program(prog, dst)
             names.append(name)
         path = os.path.join(outdir, JOB_FILE)
         with open(path, "w") as f:
@@ -516,7 +579,8 @@ class Session:
                   driver: str | None = None, transport: str | None = None,
                   fabric: FabricSpec | None = None,
                   device: str | torch.device | None = None) -> "Session":
-        """Load a plan saved by either package for execution.  The spec's
+        """Load a plan saved by either package for execution, its program
+        files run from disk (never read into RAM whole).  The spec's
         hash is recomputed from the manifest and checked against the
         manifest's and every program file's stamp: an edited
         ``job.json``, a swapped plan file or a changed planner raises
@@ -552,7 +616,7 @@ class Session:
                     f"{name} was planned for spec {got}, worker "
                     f"{pf.worker}; job.json says {expect}, worker {k}: "
                     f"artifact and spec disagree")
-            planned.append(pf.read_program())
+            planned.append(pf)
         sess.adopt_plan(planned)
         return sess
 
@@ -618,7 +682,8 @@ class Session:
                           **self._extra())
         return outputs
 
-    def _run(self, planned: list[Program], ddef: DriverDef, fx: Fabric,
+    def _run(self, planned: list[Program | ProgramFile], ddef: DriverDef,
+             fx: Fabric,
              scheds, oscheds, digest: bool) -> dict[int, ProtocolDriver]:
         """Build the hosted ranks' drivers and run one engine each: rank
         ``party * p + worker`` runs ``planned[worker]`` with a

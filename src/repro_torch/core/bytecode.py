@@ -189,6 +189,28 @@ _HEADER_FIELDS = ("page_shift", "protocol", "phase", "worker", "num_workers",
                   "vspace_slots", "num_frames", "prefetch_slots")
 
 
+def pack_row(op: Op, outs: Sequence[Span] = (), ins: Sequence[Span] = (),
+             imm: Sequence[int] = ()) -> list[int]:
+    """One all-int instruction as a raw record row (a list of
+    RECORD_WORDS ints): what ``encode_chunk([Instr(op, outs, ins, imm)])``
+    gives, without building the Instr (the planner cores' directives)."""
+    row = [0] * RECORD_WORDS
+    k = _OUT_OFF
+    for a, n in outs:
+        row[k] = a
+        row[k + 1] = n
+        k += 2
+    k = _IN_OFF
+    for a, n in ins:
+        row[k] = a
+        row[k + 1] = n
+        k += 2
+    for j, v in enumerate(imm):
+        row[_IMM_OFF + j] = v
+    row[0] = int(op) | len(outs) << 16 | len(ins) << 20 | len(imm) << 24
+    return row
+
+
 def unpack_heads(w0: np.ndarray) -> tuple[np.ndarray, ...]:
     """Split a vector of record head words into (op, n_outs, n_ins, n_imm)."""
     return (w0 & 0xFFFF, (w0 >> 16) & 0xF, (w0 >> 20) & 0xF,
@@ -265,16 +287,31 @@ def decode_chunk(arr: np.ndarray) -> list[Instr]:
     return out
 
 
-def iter_record_chunks(prog: Program, chunk_instrs: int | None = None, *,
+def iter_instructions(prog: Program | ProgramFile) -> Iterator[Instr]:
+    """Instruction stream of an in-memory Program or an on-disk
+    ProgramFile (decoded a chunk at a time, so walking a file holds one
+    chunk)."""
+    instrs = getattr(prog, "instrs", None)
+    return iter(instrs) if instrs is not None else prog.iter_instrs()
+
+
+def iter_record_chunks(prog: Program | ProgramFile,
+                       chunk_instrs: int | None = None, *,
                        cache: bool = False
                        ) -> Iterator[tuple[int, np.ndarray | None, list]]:
-    """Yield ``(start, rec, instrs)`` chunks of a Program: ``rec`` is the
-    chunk's record array (``None`` where the record format cannot express
-    it), ``instrs`` its instruction list.  ``cache=True`` memoizes the
-    encoded chunks on the Program so repeated replays skip the encode."""
+    """Yield ``(start, rec, instrs)`` chunks of a Program or ProgramFile:
+    ``rec`` is the chunk's record array (``None`` where the record format
+    cannot express an in-memory chunk), ``instrs`` its instruction list
+    (``None`` for a file's chunks, which consumers decode on demand).
+    ``cache=True`` memoizes the encoded chunks on a Program so repeated
+    replays skip the encode; a file is read afresh each time."""
     if chunk_instrs is None:
         chunk_instrs = DEFAULT_CHUNK_INSTRS
-    instrs = prog.instrs
+    instrs = getattr(prog, "instrs", None)
+    if instrs is None:
+        for s, rec in prog.iter_chunks(chunk_instrs):
+            yield s, rec, None
+        return
     memo = getattr(prog, "_rec_chunk_cache", None) if cache else None
     if memo is not None and memo[0] == chunk_instrs:
         for i, s in enumerate(range(0, len(instrs), chunk_instrs)):
@@ -327,6 +364,14 @@ class ProgramWriter:
         for i in instrs:
             self.append(i)
 
+    def append_records(self, arr: np.ndarray) -> None:
+        """Write already-encoded records through, without a decode."""
+        if arr.ndim != 2 or arr.shape[1] != RECORD_WORDS:
+            raise ValueError(f"bad record array shape {arr.shape}")
+        self._flush()
+        self._f.write(np.ascontiguousarray(arr, dtype=_REC_DTYPE).tobytes())
+        self.num_records += arr.shape[0]
+
     def _flush(self) -> None:
         if self._buf:
             self._f.write(encode_chunk(self._buf).tobytes())
@@ -350,8 +395,10 @@ class ProgramWriter:
 
 class ProgramFile:
     """A program on disk: the header fields of a ``Program``, its ``meta``
-    and chunked record access.  The engine and the schedule builders take
-    an in-memory ``Program``: :meth:`read_program` materializes one."""
+    and chunked forward and reverse record access.  The engine, the
+    schedule builders and every planner stage take one in place of an
+    in-memory ``Program`` and hold one chunk of it at a time;
+    :meth:`read_program` materializes the whole file."""
 
     def __init__(self, path: str | os.PathLike):
         self.path = os.fspath(path)

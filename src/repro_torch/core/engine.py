@@ -24,6 +24,11 @@ directives and no view raises.  The engine walks an overlap schedule
 where their data is needed) or a batch schedule (``exec.batching``) when
 it is given one, and otherwise the scalar loop: one instruction at a
 time, in program order.  All three give the same results bit for bit.
+
+The program is an in-memory ``Program`` or an on-disk ``ProgramFile``;
+with a file the engine is the streaming executor of §7.1: every loop
+decodes the file a chunk at a time, so a program far larger than RAM runs
+in O(chunk) host memory beside the engine's frames.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from .bytecode import (_IMM_OFF, _IN_OFF, _OUT_OFF, Instr, Op, Program,
+                       ProgramFile, decode_chunk, iter_instructions,
                        iter_record_chunks, unpack_heads)
 from .storage import swap_io
 from .transport import PartyView, TransportError, nbytes
@@ -107,14 +113,26 @@ SWAP_DIRECTIVES = frozenset({Op.SWAP_IN, Op.SWAP_OUT, Op.ISSUE_SWAP_IN,
                              Op.ISSUE_SWAP_OUT, Op.FINISH_SWAP_OUT})
 
 
-def swapped_pages(prog: Program) -> set[int]:
-    """The virtual pages a program ever writes to storage."""
-    return {ins.imm[0] for ins in prog.instrs
-            if ins.op in (Op.SWAP_OUT, Op.ISSUE_SWAP_OUT)}
+_WRITE_OPS = (Op.SWAP_OUT, Op.ISSUE_SWAP_OUT)
+
+
+def swapped_pages(prog: Program | ProgramFile) -> set[int]:
+    """The virtual pages a program ever writes to storage: one pass over
+    an in-memory program's instructions, or over a file's record chunks
+    (so a storage is sized without materializing the program)."""
+    instrs = getattr(prog, "instrs", None)
+    if instrs is not None:
+        return {ins.imm[0] for ins in instrs if ins.op in _WRITE_OPS}
+    pages: set[int] = set()
+    for _, rec, _ in iter_record_chunks(prog):
+        sel = np.isin(unpack_heads(rec[:, 0])[0], [int(o) for o in _WRITE_OPS])
+        pages.update(rec[sel, _IMM_OFF].tolist())
+    return pages
 
 
 class Engine:
-    """Interprets one memory- or virtual-phase ``Program`` on ``device``.
+    """Interprets one memory- or virtual-phase ``Program`` or
+    ``ProgramFile`` on ``device``.
 
     ``storage`` holds the pages the program writes out (unused by a
     virtual program); its owner closes it.  ``net`` is the engine's
@@ -125,7 +143,8 @@ class Engine:
     when the driver can; with neither it runs the scalar loop, and any
     driver will do."""
 
-    def __init__(self, program: Program, driver, device: torch.device,
+    def __init__(self, program: Program | ProgramFile, driver,
+                 device: torch.device,
                  storage=None, batch_schedule: BatchSchedule | None = None,
                  net: PartyView | None = None,
                  overlap_schedule: OverlapSchedule | None = None):
@@ -194,9 +213,20 @@ class Engine:
         """The scalar loop: every instruction through ``_exec_one``, in
         program order."""
         exec_one = self._exec_one
-        for instr in self.prog.instrs:
+        for instr in iter_instructions(self.prog):
             exec_one(instr)
         self.driver.finalize()
+
+    def _exec_rows(self, rec: np.ndarray, instrs: list | None,
+                   rows: np.ndarray) -> None:
+        """``rows`` of a chunk through ``_exec_one``, in order; a file's
+        chunk (no instruction list) is decoded for just those rows."""
+        if instrs is not None:
+            for r in rows:
+                self._exec_one(instrs[r])
+        else:
+            for ins in decode_chunk(rec[rows]):
+                self._exec_one(ins)
 
     def _run_loop(self) -> None:
         """Walk the precomputed batch schedule.
@@ -223,16 +253,22 @@ class Engine:
                         and Op(gop) in batch_ops:
                     self._exec_batch(Op(gop), rec, rows)
                 else:
-                    for r in rows:
-                        self._exec_one(instrs[r])
+                    self._exec_rows(rec, instrs, rows)
             ci += 1
         drv.finalize()
 
-    def _net_row(self, ins: Instr, is_send: bool
-                 ) -> tuple[int, int, torch.Tensor]:
-        """(peer, tag, span view) of a NET_SEND / NET_RECV."""
-        span = ins.ins[0] if is_send else ins.outs[0]
-        return int(ins.imm[0]), int(ins.imm[1]), self._view(span)
+    def _net_row(self, rec: np.ndarray, instrs: list | None, r: int,
+                 is_send: bool) -> tuple[int, int, torch.Tensor]:
+        """(peer, tag, span view) of a NET_SEND / NET_RECV row, from the
+        record's columns when the chunk has no instruction list."""
+        if instrs is not None:
+            ins = instrs[r]
+            span = ins.ins[0] if is_send else ins.outs[0]
+            return int(ins.imm[0]), int(ins.imm[1]), self._view(span)
+        row = rec[r]
+        off = _IN_OFF if is_send else _OUT_OFF
+        return (int(row[_IMM_OFF]), int(row[_IMM_OFF + 1]),
+                self._view((int(row[off]), int(row[off + 1]))))
 
     def _run_loop_overlap(self) -> None:
         """Walk the overlap schedule (``exec.overlap``): NET_SENDs issued
@@ -266,12 +302,11 @@ class Engine:
                             and Op(gop) in batch_ops:
                         self._exec_batch(Op(gop), rec, rows)
                     else:
-                        for r in rows:
-                            self._exec_one(instrs[r])
+                        self._exec_rows(rec, instrs, rows)
                 elif kind == K_SEND:
                     net = self._net()
                     for r in rows:
-                        dst, tag, view = self._net_row(instrs[r], True)
+                        dst, tag, view = self._net_row(rec, instrs, r, True)
                         net.send_async(w, dst, tag, view)
                         n = nbytes(view)
                         stats.directives += 1
@@ -289,7 +324,7 @@ class Engine:
                 else:  # K_RECV_POST
                     net = self._net()
                     for r in rows:
-                        src, tag, view = self._net_row(instrs[r], False)
+                        src, tag, view = self._net_row(rec, instrs, r, False)
                         handles[int(r)] = (
                             net.recv_async(src, w, tag, out=view), src,
                             nbytes(view))

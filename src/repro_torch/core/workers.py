@@ -1,13 +1,13 @@
 """Parallel execution (§5.1-§5.2, §6 "per-worker planning"): the port's
-copy of ``repro.core.workers`` (the streaming planner waits for a later
-slice).
+copy of ``repro.core.workers``.
 
 Workers follow the paper's distributed-memory model: each worker is one
 thread of computation with its own MAGE-physical address space; DSL
 programs are parameterized by (worker, num_workers) and move data between
 workers with explicit network directives (``send_value`` / ``recv_into``).
 Planning runs once per worker, independently: serially, in threads or in
-processes (programs and plan reports are picklable).
+processes (programs, program files and plan reports are picklable), in
+memory or out of core (``streaming``: one ``workerK/`` directory each).
 
 ``run_engines`` is the single place that spawns engine threads and
 collects their errors: the Session builds one :class:`EngineJob` per
@@ -19,14 +19,18 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import itertools
 import multiprocessing
+import os
+import shutil
+import tempfile
 import threading
 from typing import Any, Callable, Sequence
 
-from .bytecode import Op, Program
+from .bytecode import Op, Program, ProgramFile, write_program
 from .dsl import Value, trace
 from .engine import Engine, ProtocolDriver
-from .planner import PlanConfig, PlanReport, plan
+from .planner import PlanConfig, PlanReport, plan, plan_streaming
 from .transport import Fabric, PartyView
 
 
@@ -77,15 +81,53 @@ def trace_workers(fn: Callable[[ProgramOptions], None], *, protocol: str,
 PARALLEL_MODES = ("serial", "thread", "process")
 
 
-def _plan_one(prog: Program, cfg: PlanConfig) -> tuple[Program, PlanReport]:
-    """Module-level so ``parallel="process"`` can pickle it."""
-    return plan(prog, cfg)
+def _plan_one(prog: Program | ProgramFile, cfg: PlanConfig,
+              streaming: bool, wd: str | None, track_memory: bool,
+              chunk_instrs: int, annotation: str | None,
+              spawned: tuple[bool, bool] = (False, False),
+              ) -> tuple[Program | ProgramFile, PlanReport]:
+    """Module-level so ``parallel="process"`` can pickle it.  ``wd`` is
+    this worker's directory (None: a fresh temporary one).  ``spawned`` =
+    (``prog`` is a virtual file written for this call, removed after
+    planning; ``wd`` was made for it, removed if planning fails)."""
+    if not streaming:
+        return plan(prog, cfg, track_memory=track_memory)
+    own_file, own_dir = spawned
+    try:
+        return plan_streaming(prog, cfg, workdir=wd,
+                              track_memory=track_memory,
+                              chunk_instrs=chunk_instrs,
+                              annotations=annotation)
+    except BaseException:
+        if own_dir:
+            shutil.rmtree(wd, ignore_errors=True)
+        raise
+    finally:
+        if own_file and os.path.exists(prog.path):
+            os.unlink(prog.path)
 
 
-def plan_workers(progs: Sequence[Program],
+def _virtual_file(prog: Program, wd: str | None, chunk_instrs: int
+                  ) -> tuple[ProgramFile, str, tuple[bool, bool]]:
+    """A worker's virtual program as a file in its directory (made here
+    when ``wd`` is None), for a spawned streaming planner."""
+    own_dir = wd is None
+    if own_dir:
+        wd = tempfile.mkdtemp(prefix="mage_plan_")
+    else:
+        os.makedirs(wd, exist_ok=True)
+    pf = write_program(prog, os.path.join(wd, "virtual.bc"),
+                       strip_free=True, chunk_instrs=chunk_instrs)
+    return pf, wd, (True, own_dir)
+
+
+def plan_workers(progs: Sequence[Program | ProgramFile],
                  cfg: PlanConfig | Sequence[PlanConfig],
-                 parallel: bool | str = False
-                 ) -> tuple[list[Program], list[PlanReport]]:
+                 parallel: bool | str = False, streaming: bool = False,
+                 workdir: str | None = None, track_memory: bool = False,
+                 chunk_instrs: int = 8192,
+                 annotations: Sequence[str] | None = None,
+                 ) -> tuple[list[Program | ProgramFile], list[PlanReport]]:
     """Plan each worker's program independently (§6.1).
 
     ``parallel`` picks the executor: ``False`` / ``"serial"`` plans
@@ -93,25 +135,56 @@ def plan_workers(progs: Sequence[Program],
     ``"process"`` one process per worker (spawned: a forked child of a
     process that holds a CUDA context must not touch the card, and a
     fresh one need not care).  ``cfg`` is one PlanConfig or one per
-    worker (fractional budgets resolve per working set)."""
+    worker (fractional budgets resolve per working set).
+
+    ``streaming=True`` plans out of core, file to file, in a ``workerK/``
+    subdirectory of ``workdir`` each (a fresh temporary directory each
+    when ``workdir`` is None), and returns the memory programs as
+    ProgramFiles, which the engine runs from disk; a spawned planner is
+    handed its worker's virtual program as a file, written here first.
+    ``annotations`` are optional per-worker next-use sidecars of the
+    virtual programs (the annotation pass is skipped for those).
+    ``track_memory=True`` measures each planner's peak with tracemalloc,
+    which is process-global: with threads the workers plan serially
+    instead."""
     cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(progs)
     if len(cfgs) != len(progs):
         raise ValueError(f"{len(cfgs)} configs for {len(progs)} workers")
+    anns = list(annotations) if annotations is not None \
+        else [None] * len(progs)
+    if len(anns) != len(progs):
+        raise ValueError(f"{len(anns)} annotations for {len(progs)} workers")
     mode = {False: "serial", True: "thread"}.get(parallel, parallel)
     if mode not in PARALLEL_MODES:
         raise ValueError(f"parallel must be one of {PARALLEL_MODES}, "
                          f"got {parallel!r}")
-    if mode == "serial" or len(progs) <= 1:
-        results = list(map(_plan_one, progs, cfgs))
+    if track_memory and mode == "thread":
+        mode = "serial"
+    if len(progs) <= 1:
+        mode = "serial"
+    progs = list(progs)
+    dirs = [os.path.join(workdir, f"worker{w}") if workdir else None
+            for w in range(len(progs))]
+    spawned = [(False, False)] * len(progs)
+    if streaming and mode == "process":
+        for w, prog in enumerate(progs):
+            if isinstance(prog, Program):
+                progs[w], dirs[w], spawned[w] = _virtual_file(
+                    prog, dirs[w], chunk_instrs)
+    args = (progs, cfgs, itertools.repeat(streaming), dirs,
+            itertools.repeat(track_memory), itertools.repeat(chunk_instrs),
+            anns, spawned)
+    if mode == "serial":
+        results = list(map(_plan_one, *args))
     elif mode == "thread":
         with cf.ThreadPoolExecutor(max_workers=len(progs),
                                    thread_name_prefix="mage-plan") as ex:
-            results = list(ex.map(_plan_one, progs, cfgs))
+            results = list(ex.map(_plan_one, *args))
     else:
         with cf.ProcessPoolExecutor(
                 max_workers=len(progs),
                 mp_context=multiprocessing.get_context("spawn")) as ex:
-            results = list(ex.map(_plan_one, progs, cfgs))
+            results = list(ex.map(_plan_one, *args))
     return [r[0] for r in results], [r[1] for r in results]
 
 

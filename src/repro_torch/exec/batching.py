@@ -1,7 +1,8 @@
 """Batch planner: turn a scheduled memory program into a *batch schedule*.
 
-The port's copy of ``repro.exec.batching`` (in-memory programs; the
-on-disk sidecar and its cache wait for a later slice).
+The port's copy of ``repro.exec.batching``, over a program in memory or
+a program file, streamed chunk by chunk (saving a schedule to disk and
+its cache wait for a later slice).
 
 MAGE's premise is that SC programs are oblivious — the instruction stream
 is fixed before execution.  The same property that lets the planner
@@ -34,7 +35,8 @@ import numpy as np
 
 from ..core.bytecode import (DEFAULT_CHUNK_INSTRS, DIRECTIVES, MAX_INS,
                              MAX_OUTS, _IMM_OFF, _IN_OFF, _OUT_OFF, Op,
-                             Program, iter_record_chunks, unpack_heads)
+                             Program, ProgramFile, iter_record_chunks,
+                             unpack_heads)
 
 #: ops whose side effects pin them to program order: engine directives
 #: (swaps, NET traffic) and I/O against the input provider / output
@@ -104,7 +106,7 @@ class BatchSchedule:
             else 0,
         }
 
-    def validate_for(self, prog: Program) -> None:
+    def validate_for(self, prog: Program | ProgramFile) -> None:
         n = len(prog)
         if n != self.n_records:
             raise ValueError(
@@ -250,10 +252,11 @@ def _chunk_groups(start: int, rec: np.ndarray | None, m: int
     return merged
 
 
-def build_batch_schedule(prog: Program,
+def build_batch_schedule(prog: Program | ProgramFile,
                          chunk_instrs: int | None = None) -> BatchSchedule:
     """One pass over the memory program's record chunks -> BatchSchedule.
-    Runs on any phase; intended to run once per plan."""
+    Runs on any phase, streams a ProgramFile chunk by chunk and is
+    O(chunk) in memory; intended to run once per plan."""
     if chunk_instrs is None:
         chunk_instrs = DEFAULT_CHUNK_INSTRS
     order: list[np.ndarray] = []

@@ -1,6 +1,6 @@
-"""Overlap planner: the port's copy of ``repro.exec.overlap`` (in-memory
-programs; saving a schedule to disk and its cache wait for a later
-slice).  It turns a memory program into an *overlap schedule*: planned
+"""Overlap planner: the port's copy of ``repro.exec.overlap`` (over a
+program in memory or a program file; saving a schedule to disk and its
+cache wait for a later slice).  It turns a memory program into an *overlap schedule*: planned
 out-of-order issue windows that hide network latency.
 
 MAGE's premise (§3) is that SC programs are oblivious: the instruction
@@ -45,7 +45,7 @@ from heapq import heapify, heappop, heappush
 import numpy as np
 
 from ..core.bytecode import (DEFAULT_CHUNK_INSTRS, DIRECTIVES, _IMM_OFF,
-                             _IN_OFF, _OUT_OFF, Op, Program,
+                             _IN_OFF, _OUT_OFF, Op, Program, ProgramFile,
                              iter_record_chunks, unpack_heads)
 from .batching import _window_groups
 
@@ -123,7 +123,7 @@ class OverlapSchedule:
             "scalar_instructions": int(sizes[local & ~batch].sum()),
         }
 
-    def validate_for(self, prog: Program) -> None:
+    def validate_for(self, prog: Program | ProgramFile) -> None:
         n = len(prog)
         if n != self.n_records:
             raise ValueError(
@@ -347,7 +347,7 @@ def _chunk_overlap_groups(rec: np.ndarray | None, m: int) -> list[_Group]:
     return merged
 
 
-def build_overlap_schedule(prog: Program,
+def build_overlap_schedule(prog: Program | ProgramFile,
                            chunk_instrs: int | None = None
                            ) -> OverlapSchedule:
     """One pass over the program's record chunks -> OverlapSchedule.

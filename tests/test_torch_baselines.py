@@ -17,7 +17,7 @@ import torch
 from repro.api import JobSpec as RefJobSpec, Session as RefSession
 from repro.core.bytecode import encode_chunk as ref_encode
 from repro.exec.batching import build_batch_schedule as ref_batch_schedule
-from repro_torch import __main__ as cli
+from repro_torch import __main__ as cli, api
 from repro_torch.api import JobSpec, Session
 from repro_torch.core.bytecode import Instr, Op, encode_chunk
 from repro_torch.core.replacement import POLICIES, plan_replacement
@@ -106,7 +106,8 @@ POLICY_TABLE = [
                          ids=[f"{j['workload']}-{p}-{'b' if b else 'p'}{f}"
                               for j, p, b, f, _ in POLICY_TABLE])
 def test_policy_swap_counts(job, policy, bypass, prefetch, want):
-    """The swap counts chip_smoke.py's baselines phase asserts on the card."""
+    """The JAX package's plans of the main jobs' shapes (chip_smoke.py's
+    baselines phase asserts them on the card at merge n = 512, below)."""
     s = Session(JobSpec(**job, policy=policy, swap_bypass=bypass,
                         prefetch_pages=prefetch), device="cpu")
     s.plan()
@@ -114,6 +115,26 @@ def test_policy_swap_counts(job, policy, bypass, prefetch, want):
     assert (s.config.num_frames, r.replacement.swap_ins,
             r.replacement.swap_outs, r.schedule.prefetched,
             r.schedule.bypass_hits) == want
+
+
+#: the same plans at merge n = 512, the size chip_smoke.py's baselines
+#: phase runs the policies at: (policy, bypass, prefetch, want)
+MERGE_512 = dict(workload="merge", n=512, memory_budget=0.4)
+POLICY_TABLE_512 = [
+    ("min", False, 4, (13, 176, 176, 176, 0)),
+    ("min", True, 4, (13, 176, 176, 172, 4)),
+    ("min_clean", False, 4, (13, 176, 176, 176, 0)),
+    ("lru", False, 4, (13, 235, 235, 235, 0)),
+    ("fifo", False, 4, (13, 235, 235, 235, 0)),
+    ("lru", False, 0, (13, 233, 233, 0, 0)),
+]
+
+
+@pytest.mark.parametrize("policy,bypass,prefetch,want", POLICY_TABLE_512,
+                         ids=[f"{p}-{'b' if b else 'p'}{f}"
+                              for p, b, f, _ in POLICY_TABLE_512])
+def test_policy_swap_counts_at_merge_512(policy, bypass, prefetch, want):
+    test_policy_swap_counts(MERGE_512, policy, bypass, prefetch, want)
 
 
 def test_unknown_policy_raises():
@@ -368,14 +389,13 @@ def test_jobspec_rejects(bad):
     (dict(plan_mode="streaming"), "item 6"),
     (dict(exec_backend="overlap"), "item 4")])
 def test_jobspec_not_ported_yet(knob, item):
-    """The streaming planner still raises, naming its ROADMAP item; the
-    overlap backend (item 4) is ported and accepted."""
-    if item == "item 4":
-        spec = JobSpec("merge", memory_budget=5, num_workers=4, **knob)
-        assert (spec.exec_backend, spec.num_workers) == ("overlap", 4)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        JobSpec("merge", memory_budget=5, **knob)
+    """Both knobs are ported now and accepted: the streaming planner
+    (ROADMAP Queue 1 item 6) and the overlap backend (item 4); no knob
+    value is left to name a ROADMAP item."""
+    spec = JobSpec("merge", memory_budget=5, num_workers=4, **knob)
+    assert knob.items() <= spec.to_dict().items()
+    assert spec.num_workers == 4
+    assert not api.NOT_PORTED
 
 
 def test_jobspec_defaults():

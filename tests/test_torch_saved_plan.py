@@ -8,8 +8,9 @@
   spec, and the same stamped hash.
 * Reference plans: job directories from the reference's ``plan`` command
   (``--mode memory``, its default streaming mode, and unbounded) load with
-  ``Session.from_plan`` and run equal to the oracle and to the port's
-  in-process run; an unbounded plan saved by the port runs too.
+  ``Session.from_plan``, keep their mode, run from their files and equal
+  the oracle and the port's in-process run of the same mode; an unbounded
+  plan saved by the port runs too.
 * Refusals: an edited ``job.json``, a swapped program file, a missing one
   and an unknown field raise ``SpecMismatchError`` / ``ValueError`` (exit
   2 / 1 from the CLI).
@@ -142,6 +143,13 @@ def test_saved_plan_is_the_references(tmp_path, spec):
             b.meta["job_spec"]).to_dict() | {"exec_backend": "batched"}
 
 
+def _records(prog) -> list:
+    """A program's records as nested lists (an in-memory one or a file)."""
+    if isinstance(prog, Program):
+        return bc.encode_chunk(prog.instrs).tolist()
+    return [r for _, c in prog.iter_chunks() for r in c.tolist()]
+
+
 def _ref_plan(tmp_path, name: str, *args) -> str:
     job = str(tmp_path / name)
     assert ref_main(["plan", *args, "--out", job]) == 0
@@ -161,12 +169,16 @@ def test_reference_plans_run_in_the_port(tmp_path, args):
     job = _ref_plan(tmp_path, "job", *args)
     s = Session.from_plan(job, device="cpu")
     assert s.spec.exec_backend == "scalar"      # the reference's default
-    assert s.spec.plan_mode in ("memory", "unbounded")
+    mode = "--mode" in args and args[args.index("--mode") + 1] or \
+        ("streaming" if "--budget" in args else "unbounded")
+    assert s.spec.plan_mode == mode
+    assert all(isinstance(p, bc.ProgramFile) for p in s.plan())
     out = s.execute(real=None, check=True)
-    mine = Session(dataclasses.replace(s.spec, exec_backend="batched"),
-                   device="cpu")
-    want = mine.execute(real=None)
-    assert [p.instrs for p in mine.plan()] == [p.instrs for p in s.plan()]
+    with Session(dataclasses.replace(s.spec, exec_backend="batched"),
+                 device="cpu") as mine:
+        want = mine.execute(real=None)
+        assert [_records(p) for p in mine.plan()] == \
+            [_records(p) for p in s.plan()]
     if s.protocol == "gc":
         assert same_outputs(out, want)
     else:

@@ -37,7 +37,7 @@ import chip_smoke as cs
 dev = torch.device("cuda", 0)
 cs.phase_build()
 cs.phase_ckks_parity(dev)
-counts, m = cs.phase_ckks_main(dev)
+counts, m = cs.phase_ckks_main(dev)[:2]
 import inspect
 paths = {"ckks main": counts} \
     if "paths" in inspect.signature(cs.ntt_record).parameters else counts

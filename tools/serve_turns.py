@@ -42,7 +42,7 @@ if sys.argv[1] == "after":
     cs._baseline_scalar(dev, gc_min, ckks_planned)
     cs._baseline_memmap(dev, gc_min, ckks_planned)
     del gc_min, ckks_planned
-    cs._baseline_parity(dev)
+    cs._baseline_parity_runs(dev)
     cs._baseline_profile(dev)
 _, m, _ = cs.phase_serve_main(dev)
 t = m["decode_turns_ms"]
