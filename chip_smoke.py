@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-It drives the port's three paths: the planned two-party garbled merge
-(GC) and the other GC workloads and apps, the planned CKKS jobs (both
-kinds of job at four workers a party, in one process and as a fleet of
-one process a rank from saved plans) and serving qwen2-1.5b (and,
-briefly, stablelm-3b) with the paged decode.
+It drives the port's three kernel paths: the planned two-party garbled
+merge (GC) and the other GC workloads and apps, the planned CKKS jobs
+(both kinds of job at four workers a party, in one process and as a fleet
+of one process a rank from saved plans) and serving qwen2-1.5b (and,
+briefly, stablelm-3b) with the paged decode; and two paths without a
+kernel: the n-party Shamir jobs on the card and the §8.2 scenario
+simulator (``bench``, host work).
 TF32 stays off for the whole run: the plain versions' float32 products run
 in full float32.  Phases, each raising on failure:
 
@@ -133,16 +135,42 @@ in full float32.  Phases, each raising on failure:
                  the top (its memory program above the reference's 8 MiB
                  planner cap, the planner's peak under half of it, its
                  records those of the DSL trace's in-memory plan);
-14. record       each kernel timed at each path's launch sizes, beside
+14. shamir       the n-party Shamir jobs on the card (no kernel on this
+                 path: the GF(2^61 - 1) field ops are PyTorch tensor ops):
+                 shamir_stats n=2048 at 3 parties and n=2560 at 5
+                 (fig_nparty's cases) and shamir_cmp n=1024 at 3, each
+                 planned at budget 0.5 and run on the scalar, batched and
+                 overlap loops, checked against its oracle; every loop's
+                 outputs and NET messages and bytes per worker link equal;
+                 every rank's final engine memory equal to the same jobs
+                 run with device="cpu" (in a process of their own
+                 meanwhile); fig_nparty's two sections: the
+                 simulator's NET stall in order against overlap on the
+                 planned program (11 ms one way, 250 MB/s a flow; model
+                 seconds) and measure_traffic over shaped links with the
+                 same fabric, scalar against overlap loop (identical
+                 outputs and total bytes required, the speedup recorded);
+15. bench        host work in a process of its own started after the
+                 build:
+                 run_bench over the ten Fig. 8 cases at budget 0.4 with
+                 its MAGE-beats-OS check, the tiny streaming case (merge
+                 4096 planned out of core), the array simulator cores
+                 against the scalar ones field for field on merge 2048 and
+                 rsum 128, and Session.simulate of GC main's spec, whose
+                 simulated MAGE / unbounded is logged beside the baselines
+                 phase's measured planned / unbounded execute time (the
+                 simulator's seconds are outputs of its STORAGE
+                 calibration, the same on every host);
+16. record       each kernel timed at each path's launch sizes, beside
                  its bound, its plain version and (the product) the
                  PyTorch expression, with the host's time per wrapper call
                  and the empty kernel; the NTT kernels also at 4096 rows,
                  with a host breakdown of a wrapper call; the fused kernel
                  over its launch shapes, beside the three standalone
                  launches each one replaces, timed at the same sizes;
-15. profile      the GC path's shape at n=256 and the CKKS main job under
+17. profile      the GC path's shape at n=256 and the CKKS main job under
                  torch.profiler: device time by op, and the busy share;
-16. attn kernels the paged-attention kernels (split and combine) against
+18. attn kernels the paged-attention kernels (split and combine) against
                  their plain version on the card (rtol 1e-4, atol 1e-5),
                  f32 and bf16 pages: the JAX package's test shapes, qwen2's
                  head shape at batch 1 and 8 (ragged lengths, permuted
@@ -151,26 +179,26 @@ in full float32.  Phases, each raising on failure:
                  over host tables and over tables prepared with 2-page
                  chunks, stablelm-3b's heads (head_dim 80) and a group of
                  16;
-17. serve parity reduced qwen2 in f32 with nonzero biases served on the
+19. serve parity reduced qwen2 in f32 with nonzero biases served on the
                  card equals the same run with device="cpu": greedy tokens,
                  and teacher-forced logits within relative 1e-4, for the
                  paged and the contiguous decode;
-18. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
+20. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
                  run_server with the paged decode: 4 requests of 200-token
                  prompts, 64 new tokens each, every decode attention through
                  the kernels (252 steps x 28 layers wrapper calls, the
                  tables prepared once a step), held against the contiguous
                  decode teacher-forced on its tokens;
-19. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
+21. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
                  64 prompt tokens and 8 new ones, paged (7 steps x 32
                  layers wrapper calls) against its contiguous decode;
-20. attn record  a wrapper call timed at the main path's lengths and at the
+22. attn record  a wrapper call timed at the main path's lengths and at the
                  32768-token batch: device time summed over the kernels it
                  launches (split and combine also apart, profiler), the
                  host's time per call over prepared and over host tables
                  (events), beside the bound, the plain version and gather +
                  scaled_dot_product_attention;
-21. serve profile a few decode steps of the serve main job under
+23. serve profile a few decode steps of the serve main job under
                  torch.profiler: device time by op and the busy share.
 
 The last four lines are a JSON summary of the run's headline numbers, the
@@ -202,8 +230,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.api import (JobSpec, Session, check_outputs,  # noqa: E402
-                             resolve_plan_config)
+from repro_torch.api import (SLOT_BYTES, JobSpec, Session,  # noqa: E402
+                             check_outputs, resolve_plan_config)
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.kernels.garble import kernel as gk, ops, ref  # noqa: E402
 from repro_torch.kernels.ntt import kernel as nk  # noqa: E402
@@ -220,10 +248,15 @@ from repro_torch.core.liveness import (file_digest,  # noqa: E402
                                        working_set_pages_stream)
 from repro_torch.core.planner import plan, plan_streaming  # noqa: E402
 from repro_torch.core.engine import SWAP_DIRECTIVES  # noqa: E402
+from repro_torch.core.simulator import simulate_memory_program  # noqa: E402
+from repro_torch.core.transport import FabricSpec  # noqa: E402
 from repro_torch.core.transport import aggregate_links  # noqa: E402
 from repro_torch.protocols.ckks import cipher as ck  # noqa: E402
 from repro_torch.protocols.ckks.driver import homomorphic_ops  # noqa: E402
 from repro_torch.protocols.ckks.params import CkksParams  # noqa: E402
+from repro_torch.scenarios import (BENCH_CASES, OS_PAGE_BYTES,  # noqa: E402
+                                   STORAGE, TINY_STREAMING_CASE, cost_fn,
+                                   measure_traffic, run_bench, scenario_spec)
 from repro_torch.serve.serve_step import Request, serve_step  # noqa: E402
 from repro_torch.workloads import fast_trace  # noqa: E402
 from repro_torch.workloads import get as get_workload  # noqa: E402
@@ -3058,6 +3091,274 @@ def phase_streaming(dev, parity_ref: dict, ckks_ref: tuple, gc_ref: dict,
 
 
 # ---------------------------------------------------------------------------
+# the n-party Shamir protocol: three engine loops, card against CPU, and
+# fig_nparty's predicted and measured NET stalls
+# ---------------------------------------------------------------------------
+
+#: (workload, n, parties): fig_nparty's FULL cases (benchmarks/fig_nparty.py,
+#: shamir_stats n=2048 at 3 parties and n=2560 at 5) and shamir_cmp at its
+#: default n (the Fermat zero test: about 120 dependent multiplications)
+SHAMIR_JOBS = [("shamir_stats", 2048, 3), ("shamir_stats", 2560, 5),
+               ("shamir_cmp", 1024, 3)]
+SHAMIR_LOOPS = ("scalar", "batched", "overlap")
+#: every job planned at half its working set, as fig_nparty plans it
+SHAMIR_PLAN = dict(memory_budget=0.5)
+#: fig_nparty's WAN: 11 ms one way (Oregon-class), 250 MB/s a flow
+LAT_OREGON = 0.011
+FLOW_BW = 250e6
+#: fig_nparty's per-instruction cost for the predicted stall (s)
+NPARTY_COST_S = 5e-8
+
+
+def _shamir_key(wl: str, n: int, p: int) -> str:
+    return f"{wl}-{n}-p{p}"
+
+
+def _shamir_run(wl: str, n: int, p: int, loop: str, device) -> dict:
+    """One Shamir job planned at SHAMIR_PLAN, checked against its oracle:
+    outputs, NET traffic per worker link, every rank's final engine
+    memory (sha256 of its bytes) and the engine counters."""
+    s = Session(JobSpec(wl, n=n, num_workers=p, exec_backend=loop,
+                        **SHAMIR_PLAN), device=device)
+    t0 = time.perf_counter()
+    out = s.execute(check=True)
+    seconds = time.perf_counter() - t0
+    st = s.engine_stats
+    return {"outputs": out, "links": _net_links(s),
+            "memory": [hashlib.sha256(e.memory.cpu().numpy().tobytes())
+                       .hexdigest() for e in s.engines],
+            "execute_s": s.timings["execute_s"], "all_s": seconds,
+            "num_frames": [c.num_frames for c in s.configs],
+            "swaps": [[e.swap_ins, e.swap_outs] for e in st],
+            "instructions": [e.instructions for e in st],
+            "batched": [e.batched_instructions for e in st],
+            "net_messages": [e.net_messages for e in st],
+            "posted_recvs": [e.posted_recvs for e in st]}
+
+
+def shamir_cpu() -> dict:
+    """The Shamir jobs on the scalar loop with device="cpu", in a process
+    of its own while the card runs them (one thread)."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    res = {_shamir_key(wl, n, p): _shamir_run(wl, n, p, "scalar", "cpu")
+           for wl, n, p in SHAMIR_JOBS}
+    res["cpu_s"] = time.perf_counter() - t0
+    return res
+
+
+def _nparty_predicted(n: int, p: int, dev) -> dict:
+    """fig_nparty's planner section: the simulator's NET stall, in order
+    against overlap, on the memory program the engine runs (worker 0 of
+    shamir_stats planned at 0.5).  Model seconds."""
+    with Session(JobSpec("shamir_stats", n=n, num_workers=p,
+                         **SHAMIR_PLAN), device=dev) as s:
+        prog = s.plan()[0]
+    page_bytes = prog.page_slots * SLOT_BYTES["shamir"]
+    kw = dict(net_latency_s=LAT_OREGON, net_bandwidth=FLOW_BW)
+    ino = simulate_memory_program(prog, lambda i: NPARTY_COST_S, page_bytes,
+                                  **kw)
+    ovl = simulate_memory_program(prog, lambda i: NPARTY_COST_S, page_bytes,
+                                  net_mode="overlap", **kw)
+    net = sum(i.op in (Op.NET_SEND, Op.NET_RECV) for i in prog.instrs)
+    swaps = sum(i.op in SWAP_DIRECTIVES for i in prog.instrs)
+    cut = ino.net_stall / max(ovl.net_stall, 1e-12)
+    log(f"shamir: fig_nparty predicted ({p} parties, n={n}): "
+        f"{len(prog.instrs)} instructions, {net} NET directives, {swaps} "
+        f"swap directives under a 0.5 budget; model NET stall "
+        f"{ino.net_stall * 1e3:.1f} ms in order, {ovl.net_stall * 1e3:.1f} "
+        f"ms overlapped ({cut:.2f}x cut, {ino.net_msgs} exchanges)")
+    return {"instructions": len(prog.instrs), "net_directives": net,
+            "swap_directives": swaps,
+            "predicted_net_stall_inorder_s": ino.net_stall,
+            "predicted_net_stall_overlap_s": ovl.net_stall,
+            "predicted_stall_cut": cut, "net_exchanges": ino.net_msgs}
+
+
+def _nparty_measured(n: int, p: int, dev) -> dict:
+    """fig_nparty's measured section: shamir_stats unbounded over shaped
+    links (LAT_OREGON one way, FLOW_BW a flow) on the card, the scalar
+    loop against the overlap loop, each after an untimed warm-up run.
+    Identical outputs and total bytes are required; the speedup is
+    recorded, not gated (the reference's own 1.5x gate at 3 parties is a
+    host-speed claim)."""
+    fab = FabricSpec(latency_s=LAT_OREGON, bandwidth=FLOW_BW)
+    kw = dict(num_workers=p, transport="shaped", fabric=fab, warmup=True,
+              check=True, device=dev)
+    ino = measure_traffic("shamir_stats", n, exec_backend="scalar", **kw)
+    ovl = measure_traffic("shamir_stats", n, exec_backend="overlap", **kw)
+    if not _same(ino.outputs, ovl.outputs):
+        raise AssertionError(f"shamir: overlap outputs != in-order at "
+                             f"{p} parties")
+    if ino.total_bytes != ovl.total_bytes:
+        raise AssertionError(f"shamir: bytes over the fabric differ: "
+                             f"{ino.total_bytes} != {ovl.total_bytes}")
+    speedup = ino.seconds / ovl.seconds
+    log(f"shamir: fig_nparty measured ({p} parties, n={n}, shaped "
+        f"{LAT_OREGON * 1e3:.0f} ms): in order {ino.seconds:.3f} s, overlap "
+        f"{ovl.seconds:.3f} s ({speedup:.2f}x), {ino.total_bytes} bytes "
+        f"over {len(ino.links)} links in {ino.total_messages} messages, "
+        f"identical outputs")
+    return {"inorder_s": ino.seconds, "overlap_s": ovl.seconds,
+            "speedup": speedup, "total_bytes": ino.total_bytes,
+            "messages": ino.total_messages, "links": len(ino.links)}
+
+
+def phase_shamir(dev) -> dict:
+    """The n-party Shamir jobs on the card, each on the scalar, batched
+    and overlap loops and checked against its oracle: every loop's
+    outputs and NET messages and bytes per worker link equal the scalar
+    loop's, and every rank's final engine memory equals the CPU's (the
+    same jobs run by shamir_cpu in a process of their own meanwhile), bit
+    for bit; then fig_nparty's predicted and measured sections at its
+    FULL cases.  No kernel lies on this path: the field ops are PyTorch
+    tensor ops on the card."""
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        cpu = pool.apply_async(shamir_cpu)
+        return _shamir_on_card(dev, cpu)
+
+
+def _shamir_on_card(dev, cpu) -> dict:
+    jobs = {}
+    for wl, n, p in SHAMIR_JOBS:
+        key = _shamir_key(wl, n, p)
+        runs = {loop: _shamir_run(wl, n, p, loop, dev)
+                for loop in SHAMIR_LOOPS}
+        base = runs["scalar"]
+        for loop, r in runs.items():
+            if not _same(r["outputs"], base["outputs"]) or \
+                    r["links"] != base["links"]:
+                raise AssertionError(f"shamir {key}: the {loop} loop's "
+                                     f"outputs or NET links differ")
+            log(f"shamir: {wl} n={n} at {p} parties, {loop} (frames "
+                f"{r['num_frames']}), {len(r['outputs'])} outputs checked "
+                f"against the oracle: execute {r['execute_s']:.3f} s (all "
+                f"{r['all_s']:.3f}); instructions {r['instructions']}, "
+                f"batched {r['batched']}; swaps {r['swaps']}; NET messages "
+                f"{r['net_messages']}, posted receives {r['posted_recvs']}; "
+                f"links {r['links']}")
+        jobs[key] = {loop: {k: v for k, v in r.items()
+                            if k not in ("outputs", "memory")}
+                     for loop, r in runs.items()}
+        jobs[key]["runs"] = runs
+    cpu = cpu.get()
+    for key, job in jobs.items():
+        want = cpu[key]
+        for loop, r in job.pop("runs").items():
+            if not _same(r["outputs"], want["outputs"]) or \
+                    r["memory"] != want["memory"] or \
+                    r["links"] != want["links"]:
+                raise AssertionError(f"shamir {key} {loop}: card != CPU "
+                                     f"(outputs, engine memory or links)")
+        log(f"shamir parity: {key} on the card's three loops == on the CPU: "
+            f"outputs, NET links and every rank's final engine memory "
+            f"({len(want['memory'])} engines, bit for bit)")
+    nparty = {}
+    for n, p in ((2048, 3), (2560, 5)):
+        nparty[f"p{p}"] = {"n": n, **_nparty_predicted(n, p, dev),
+                           **_nparty_measured(n, p, dev)}
+    return {"jobs": jobs, "nparty": nparty, "cpu_s": cpu["cpu_s"]}
+
+
+# ---------------------------------------------------------------------------
+# bench: the §8.2 scenarios through the timing simulator (host work)
+# ---------------------------------------------------------------------------
+
+#: the array and the scalar simulator cores, field for field, on these
+#: cases (the reference's tiny bench cases)
+BENCH_CORE_CASES = (("merge", 2048), ("rsum", 128))
+
+
+def _bench_cores_equal(name: str, n: int) -> None:
+    with Session(scenario_spec(name, n, budget_frac=0.4)) as s:
+        got = [s.simulate(cost_fn(s.protocol), model=STORAGE,
+                          os_page_bytes=OS_PAGE_BYTES, core=core)
+               for core in ("array", "scalar")]
+    for a, b in zip(*got):
+        for f in ("unbounded", "os", "mage"):
+            if dataclasses.asdict(getattr(a, f)) != \
+                    dataclasses.asdict(getattr(b, f)):
+                raise AssertionError(f"bench: {name} n={n} {f}: array "
+                                     f"core != scalar core")
+
+
+def bench_case() -> dict:
+    """The bench phase's host work, in a process of its own (``main``
+    starts it after the build, the bench phase collects it; one thread):
+    ``run_bench`` over the ten Fig. 8 cases at budget 0.4 with its
+    MAGE-beats-OS check, the tiny streaming case (merge 4096 planned out
+    of core), the array cores against the scalar ones on
+    BENCH_CORE_CASES, and ``Session.simulate`` of GC main's own spec.
+    The Sessions take their default device, the card, which simulation
+    never touches.  What run_bench prints comes back as text."""
+    import contextlib
+    import io
+    torch.set_num_threads(1)
+    res = {}
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        t0 = time.perf_counter()
+        res["rows"] = run_bench(BENCH_CASES, budget_frac=0.4, check=True)
+        res["bench_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["streaming"] = run_bench([], budget_frac=0.4, check=True,
+                                     streaming_case=TINY_STREAMING_CASE)[0]
+        res["streaming_s"] = time.perf_counter() - t0
+    res["text"] = text.getvalue()
+    t0 = time.perf_counter()
+    for name, n in BENCH_CORE_CASES:
+        _bench_cores_equal(name, n)
+    res["cores_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with Session(JobSpec("merge", **MAIN)) as s:
+        (w,) = s.simulate(cost_fn("gc"), model=STORAGE,
+                          os_page_bytes=OS_PAGE_BYTES)
+        res["gc_main"] = {
+            "unbounded_s": w.unbounded.total, "os_s": w.os.total,
+            "mage_s": w.mage.total, "plan_s": s.timings["plan_s"],
+            "num_frames": w.config.num_frames,
+            "swaps": [w.report.replacement.swap_ins,
+                      w.report.replacement.swap_outs],
+            "mage_stall_s": w.mage.stall, "instructions": w.instructions}
+    res["gc_main_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_bench(case, gc_main_measured: dict | None) -> dict:
+    """Collect the bench process ``case``: its rows (model seconds of the
+    STORAGE calibration, the same on every host), and GC main's simulated
+    MAGE / unbounded beside the baselines phase's measured planned /
+    unbounded execute time on the card (``gc_main_measured``; None where
+    that phase did not run)."""
+    res = case.get()
+    for line in res.pop("text").splitlines():
+        log(line)
+    rows = res["rows"]
+    if len(rows) != len(BENCH_CASES):
+        raise AssertionError(f"bench: {len(rows)} rows for "
+                             f"{len(BENCH_CASES)} cases")
+    g = res["gc_main"]
+    sim_ratio = g["mage_s"] / g["unbounded_s"]
+    measured = gc_main_measured["planned_over_unbounded"] \
+        if gc_main_measured else None
+    res["gc_main"].update(simulated_mage_over_unbounded=sim_ratio,
+                          measured_planned_over_unbounded=measured)
+    log(f"bench: {len(rows)} Fig. 8 cases at budget 0.4, MAGE beats OS on "
+        f"every one ({res['bench_s']:.1f} s of host work); tiny streaming "
+        f"case ({res['streaming_s']:.1f} s); array cores == scalar cores "
+        f"on {[f'{w} {n}' for w, n in BENCH_CORE_CASES]} "
+        f"({res['cores_s']:.1f} s)")
+    log(f"bench: GC main (merge n={MAIN['n']}, budget 0.4, {g['num_frames']} "
+        f"frames, swaps {g['swaps']}): model seconds unbounded "
+        f"{g['unbounded_s']:.4f}, OS {g['os_s']:.4f}, MAGE {g['mage_s']:.4f} "
+        f"(stall {g['mage_stall_s']:.4f}): simulated MAGE / unbounded "
+        f"{sim_ratio:.4f}; measured on the card planned / unbounded "
+        f"execute " + (f"{measured:.4f} (baselines phase)" if measured
+                       else "not measured in this run"))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the serving path: paged-attention kernel, parity, main job, record, profile
 # ---------------------------------------------------------------------------
 
@@ -3738,6 +4039,11 @@ def main() -> None:
         cpu_parity = pool.apply_async(parity_cpu)
         smi = timed("device", phase_device)
         built = timed("build", phase_build)
+        # the bench phase's host work, likewise (after the build, whose
+        # nvcc processes it would slow)
+        bench_pool = multiprocessing.get_context("spawn").Pool(1)
+        atexit.register(bench_pool.terminate)
+        bench = bench_pool.apply_async(bench_case)
         errs, big, gate_timing = timed("kernels", phase_kernels, dev)
         ntt_errs = timed("ntt kernels", phase_ntt_kernels, dev)
         attn_err = timed("attn kernels", phase_attn_kernels, dev)
@@ -3768,6 +4074,9 @@ def main() -> None:
             (ntt_counts, ckks_out), gc_workloads["jobs"],
             metrics["plan_digest"], case)
     del parity_ref, ckks_out
+    shamir = timed("shamir", phase_shamir, dev)
+    with bench_pool:
+        bench = timed("bench", phase_bench, bench, baselines["gc_main"])
     rows, gate_launch = timed("record", kernel_record, dev, {
         "gc main": counts, "gc workloads": gc_counts, "workers": w_counts,
         "fleet": f_counts, "streaming": s_counts}, errs)
@@ -3791,7 +4100,10 @@ def main() -> None:
         "serve_stablelm": stablelm,
         "serve_profile": serve_profiled, "baselines": baselines,
         "gc_workloads": gc_workloads, "workers": workers, "fleet": fleet,
-        "streaming": streaming,
+        "streaming": streaming, "shamir": shamir,
+        "bench": {**{k: v for k, v in bench.items() if k != "rows"},
+                  "rows": [[r["workload"], r["n"], r["unbounded_s"],
+                            r["os_s"], r["mage_s"]] for r in bench["rows"]]},
         "phases_s": phases,
         "total_s": time.perf_counter() - t_all}))
     print(smi, flush=True)

@@ -15,6 +15,10 @@
     python -m repro_torch exec --workload merge -n 256 --workers 4 \\
         --budget 0.4 --prefetch 16 --exec-backend overlap --real --check \\
         [--parallel thread] [--device cpu]
+    python -m repro_torch exec --workload shamir_stats -n 2048 --workers 3 \\
+        --budget 0.5 --exec-backend overlap --check [--device cpu]
+    python -m repro_torch bench [--tiny] [--cases merge=16384,rsum=256] \\
+        [--streaming] [--sweep] [--json rows.json] [--device cpu]
 
 ``plan`` traces and plans a job and saves it: ``workerK.memory.bc``
 program files (an unbounded job's traced programs) and a ``job.json``
@@ -32,7 +36,15 @@ or outlasts ``--timeout``, and merges and checks the outputs.  ``exec``
 traces, plans and executes in one process and prints a JSON summary:
 timings, swap traffic, the engine's frame bytes, outputs, and for a
 garbled-circuit job run with ``--real`` its AND gates, for a CKKS job its
-instructions, homomorphic ops per second and transforms.
+instructions, homomorphic ops per second and transforms.  A Shamir job
+(``shamir_stats``, ``shamir_cmp``) runs its n parties as ``--workers n``
+(the ``shamir`` driver; ``run`` and ``fabric`` also take ``--driver
+shamir-3party`` / ``shamir-5party``, which check the count).  ``bench``
+drives the §8.2 scenarios (unbounded, OS swapping, MAGE) through the
+timing simulator, as the JAX package's ``bench`` does, and asserts that
+MAGE beats OS swapping on every case (not with ``--tiny`` or
+``--no-check``); its seconds are outputs of the cost and storage models,
+the same on every host, and only the planning columns are measured.
 
 The knobs are the JAX package's: ``--mode`` (memory; streaming, the
 same plan made out of core and run from its files; or unbounded: the
@@ -71,6 +83,11 @@ from .kernels.garble import ops as gc_ops
 from .kernels.ntt import ops as ntt_ops
 from .protocols.ckks.driver import homomorphic_ops
 from .workloads import all_names, get as get_workload
+
+#: the drivers ``run`` and ``fabric`` take by name
+DRIVER_CHOICES = ("gc-plaintext", "gc-2party", "ckks", "shamir",
+                  "shamir-3party", "shamir-5party")
+
 
 def _parse_budget(text: str) -> int | float:
     """``12`` → 12 frames; ``0.25`` → fraction of the working set."""
@@ -211,7 +228,7 @@ def _load(path: str, protocol: str) -> tuple[dict, dict]:
     """A ``--json`` file's outputs (as arrays) and the rest of it."""
     with open(path) as f:
         doc = json.load(f)
-    dtype = np.uint64 if protocol == "gc" else np.float64
+    dtype = np.float64 if protocol == "ckks" else np.uint64
     outs = {int(tag): np.asarray(v, dtype=dtype)
             for tag, v in doc.pop("outputs").items()}
     return outs, doc
@@ -325,6 +342,9 @@ def _protocol_summary(s: Session, real: bool) -> dict:
                 "transforms": {k: s.ckks_counts.get(k, 0)
                                for k in ("ntt_forward", "ntt_inverse")},
                 "mul_mod_rows": s.ckks_counts.get("mul_mod", 0)}
+    if s.protocol == "shamir":
+        return {"driver": s.driver_name,
+                "instructions": [e.instructions for e in s.engine_stats]}
     if not real:
         return {"driver": "gc-plaintext",
                 "instructions": [e.instructions for e in s.engine_stats]}
@@ -372,6 +392,56 @@ def cmd_exec(args) -> int:
     if args.json:
         with open(args.json, "w") as f:
             f.write(text + "\n")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# bench: the §8.2 scenarios through the timing simulator
+# ---------------------------------------------------------------------------
+
+
+def cmd_bench(args) -> int:
+    from .scenarios import (BENCH_CASES, STREAMING_CASE, SWEEP_BUDGETS,
+                            SWEEP_LOOKAHEADS, TINY_BENCH_CASES,
+                            TINY_STREAMING_CASE, run_bench, run_sweep)
+    if args.cases:
+        cases = []
+        for item in args.cases.split(","):
+            name, _, n = item.partition("=")
+            if not name or not n.isdigit():
+                raise SystemExit(
+                    f"error: bad --cases entry {item!r} (want workload=n, "
+                    f"e.g. merge=16384)")
+            cases.append((name, int(n)))
+    else:
+        cases = TINY_BENCH_CASES if args.tiny else BENCH_CASES
+    if args.sweep:
+        budgets = tuple(float(b) for b in args.budgets.split(",")) \
+            if args.budgets else SWEEP_BUDGETS
+        lookaheads = tuple(int(x) for x in args.lookaheads.split(",")) \
+            if args.lookaheads else SWEEP_LOOKAHEADS
+        rows = run_sweep(cases=cases, budgets=budgets,
+                         lookaheads=lookaheads, device=args.device)
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump({"schema_version": SCHEMA_VERSION,
+                           "benchmark": "bench_sweep",
+                           "sweep": {"budgets": list(budgets),
+                                     "lookaheads": list(lookaheads)},
+                           "rows": rows}, f, indent=2)
+            print(f"wrote {args.json}")
+        return 0
+    streaming_case = None
+    if args.streaming or args.tiny:
+        streaming_case = TINY_STREAMING_CASE if args.tiny else STREAMING_CASE
+    rows = run_bench(cases=cases, budget_frac=args.budget_frac,
+                     check=not args.no_check and not args.tiny,
+                     streaming_case=streaming_case, device=args.device)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"schema_version": SCHEMA_VERSION, "rows": rows},
+                      f, indent=2)
+        print(f"wrote {args.json}")
     return 0
 
 
@@ -443,7 +513,7 @@ def main(argv: list[str] | None = None) -> int:
                    "manifest's driver; CKKS needs no flag)")
     p.add_argument("--storage", default=None, choices=("ram", "memmap"))
     p.add_argument("--driver", default=None,
-                   choices=("gc-plaintext", "gc-2party", "ckks"))
+                   choices=DRIVER_CHOICES)
     p.add_argument("--worker", type=int, default=None, metavar="K",
                    help="distributed mode: run only global rank K "
                    "(party * workers + worker) against --peers")
@@ -477,7 +547,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="real two-party garbled circuits (2x the ranks)")
     p.add_argument("--storage", default=None, choices=("ram", "memmap"))
     p.add_argument("--driver", default=None,
-                   choices=("gc-plaintext", "gc-2party", "ckks"))
+                   choices=DRIVER_CHOICES)
     p.add_argument("--digest", action="store_true",
                    help="each garbler rank hashes its table stream")
     p.add_argument("--json", default=None,
@@ -497,6 +567,29 @@ def main(argv: list[str] | None = None) -> int:
     _add_device_arg(p)
     p.add_argument("--json", default=None, help="also write the summary here")
     p.set_defaults(fn=cmd_exec)
+
+    p = sub.add_parser("bench", help="drive the §8.2 scenarios through the "
+                       "timing simulator (model seconds)")
+    p.add_argument("--cases", default=None,
+                   help="comma list of workload=n (default: the Fig. 8 "
+                   "cases)")
+    p.add_argument("--budget-frac", type=float, default=0.4)
+    p.add_argument("--tiny", action="store_true",
+                   help="small sizes, no claim assertions")
+    p.add_argument("--streaming", action="store_true",
+                   help="add a past-planner-cap case via the file pipeline")
+    p.add_argument("--sweep", action="store_true",
+                   help="budget x lookahead grid instead of the fixed "
+                   "scenario run (rows carry both knob values)")
+    p.add_argument("--budgets", default=None,
+                   help="comma list of budget fractions for --sweep")
+    p.add_argument("--lookaheads", default=None,
+                   help="comma list of planner lookaheads for --sweep")
+    p.add_argument("--no-check", action="store_true")
+    p.add_argument("--json", metavar="PATH",
+                   help="write the rows as JSON")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     try:

@@ -2,6 +2,7 @@
 counterpart of ``repro.api`` for the paths the port runs:
 
     trace() → plan() → execute(real=True, check=...)
+                     → simulate(cost_fn, model=...)
 
 Every party runs ``num_workers`` engines over one transport fabric of
 ``parties * num_workers`` endpoints (global rank ``party * num_workers +
@@ -19,10 +20,13 @@ streams its tables to evaluator worker k over their own party link, and
 every AND gate goes through the half-gates kernels) or, with
 ``real=False``, ``gc-plaintext`` (one party in the clear, the JAX
 package's oracle driver); a CKKS job runs ``ckks`` (one party whose
-transforms and products go through the NTT kernels).  A factory builds
-drivers for the ranks this process hosts only.  The device is the card
-unless the caller passes ``device="cpu"``; without a card and without
-that, the Session raises.
+transforms and products go through the NTT kernels); a Shamir job runs
+``shamir`` (or ``shamir-3party`` / ``shamir-5party``, which check the
+party count): its n parties are the n workers of one party, and every
+resharing round is ordinary NET_* traffic over their worker links.  A
+factory builds drivers for the ranks this process hosts only.  The
+device is the card unless the caller passes ``device="cpu"``; without a
+card and without that, the Session raises.
 
 Plans are saved to a directory (``save_plan``: ``workerK.memory.bc``
 program files and a ``job.json`` manifest, in the JAX package's format)
@@ -45,6 +49,11 @@ sends hoisted, receives posted early and completed where needed);
 ``storage`` "ram" (pinned host pages) or "memmap" (a swap file);
 ``num_workers`` and ``parallel_plan`` (serial, thread or process
 planning of the workers' programs).
+
+``Session.simulate`` replays the paper's three §8.2 scenarios (unbounded,
+OS swapping, MAGE) over a planned job with the timing simulator
+(``core.simulator``): host work whose seconds are outputs of the cost and
+storage models, not times taken on any device.
 """
 
 from __future__ import annotations
@@ -61,11 +70,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .core.bytecode import Program, ProgramFile, write_program
+from .core.bytecode import (RECORD_BYTES, Program, ProgramFile,
+                            write_program)
 from .core.engine import Engine, EngineStats, ProtocolDriver, swapped_pages
 from .core.liveness import working_set_pages_stream
 from .core.planner import PlanConfig, PlanReport
 from .core.replacement import POLICIES
+from .core.simulator import (DeviceModel, SimResult, simulate_memory_program,
+                             simulate_os_paging, simulate_unbounded)
 from .core.storage import MemmapStorage, PinnedStorage
 from .core.transport import (TRANSPORTS, Fabric, FabricSpec, LinkStats,
                              build_fabric)
@@ -73,6 +85,7 @@ from .core.workers import PARALLEL_MODES, EngineJob, plan_workers, \
     run_engines
 from .exec.batched_ckks import BatchedCkksDriver
 from .exec.batched_gc import BatchedGCDriver, BatchedPlaintextDriver
+from .exec.batched_shamir import BatchedShamirDriver
 from .exec.batching import build_batch_schedule
 from .exec.overlap import build_overlap_schedule
 from .kernels import resolve_device
@@ -81,6 +94,7 @@ from .protocols.ckks.params import CkksParams
 from .protocols.garbled.driver import (EvaluatorDriver, GarblerDriver,
                                        PlaintextDriver)
 from .protocols.garbled.gates import GateCounts, PartyChannel
+from .protocols.shamir.driver import ShamirDriver
 from .workloads import Workload, get
 from .workloads.ckks_workloads import PARAMS as DEFAULT_CKKS
 
@@ -106,6 +120,10 @@ STORAGES = {"ram": PinnedStorage, "memmap": MemmapStorage}
 
 #: version stamped into every machine-readable output (``--json`` files)
 SCHEMA_VERSION = 1
+#: bytes per address-space slot, per protocol (the JAX package's): a GC
+#: slot is one 128-bit wire label, a CKKS or Shamir slot one 8-byte word;
+#: what the timing simulator and the OS-paging baseline charge per page
+SLOT_BYTES = {"gc": 16, "ckks": 8, "shamir": 8}
 #: a saved plan's manifest, beside its ``workerK.memory.bc`` files
 JOB_FILE = "job.json"
 #: the JobSpec fields that determine the planned memory program (the JAX
@@ -139,8 +157,8 @@ class JobSpec:
     prefetch buffer at most a quarter of the budget), per worker against
     that worker's own working set.  ``None`` requires
     ``plan_mode="unbounded"``, which takes no budget.  ``driver`` names a
-    registered driver ("auto": ``gc-plaintext`` or ``ckks`` by the
-    workload's protocol); ``transport`` and ``fabric`` pick the backend
+    registered driver ("auto": ``gc-plaintext``, ``ckks`` or ``shamir`` by
+    the workload's protocol); ``transport`` and ``fabric`` pick the backend
     and place the endpoints (``core.transport.FabricSpec``).  None of the
     three is part of the plan hash."""
     workload: str
@@ -202,8 +220,8 @@ class JobSpec:
         if self.n is None:
             changes["n"] = w.default_n
         if self.driver == "auto":
-            changes["driver"] = "ckks" if w.protocol == "ckks" \
-                else "gc-plaintext"
+            changes["driver"] = {"ckks": "ckks", "shamir": "shamir"}.get(
+                w.protocol, "gc-plaintext")
         return dataclasses.replace(self, **changes) if changes else self
 
     def plan_hash(self, workload: Workload | None = None) -> str:
@@ -270,7 +288,7 @@ def oracle_extra(w: Workload, spec: JobSpec) -> dict:
 def check_outputs(w: Workload, n: int, outputs: dict[int, np.ndarray],
                   atol: float = CKKS_ATOL, **extra) -> None:
     """Compare executed outputs with the workload's numpy oracle: exactly
-    for garbled circuits, within ``atol`` for CKKS (approximate
+    for garbled circuits and Shamir, within ``atol`` for CKKS (approximate
     arithmetic).  ``extra`` reaches the oracle (``ckks_params``)."""
     exp = w.oracle(n, **extra)
     missing = set(exp) - set(outputs)
@@ -279,7 +297,7 @@ def check_outputs(w: Workload, n: int, outputs: dict[int, np.ndarray],
                              f"{sorted(missing)[:5]}...")
     for tag, e in exp.items():
         got = outputs[tag]
-        if w.protocol == "gc":
+        if w.protocol in ("gc", "shamir"):
             if not np.array_equal(got, e):
                 raise AssertionError(f"{w.name} tag {tag}: {got[:4]} != "
                                      f"{e[:4]}")
@@ -365,11 +383,51 @@ def _ckks_drivers(s: "Session", fx: Fabric, digest: bool
             for r in fx.hosted}
 
 
+def _shamir_drivers(s: "Session", fx: Fabric, digest: bool
+                    ) -> dict[int, ProtocolDriver]:
+    """The n Shamir parties ARE the n workers of one registry party: worker
+    rank == party index, and each multiplication's resharing round rides
+    the all-to-all worker links as ordinary NET_* directives."""
+    w, n, p = s.workload, s.spec.n, s.spec.num_workers
+    return {r: ShamirDriver(p, r % p, w.inputs(n, r % p, p))
+            for r in fx.hosted}
+
+
+def _shamir_fixed(n_parties: int) -> DriverFactory:
+    def factory(s: "Session", fx: Fabric, digest: bool
+                ) -> dict[int, ProtocolDriver]:
+        if s.spec.num_workers != n_parties:
+            raise ValueError(
+                f"driver shamir-{n_parties}party needs num_workers="
+                f"{n_parties}, got {s.spec.num_workers}")
+        return _shamir_drivers(s, fx, digest)
+    return factory
+
+
 register_driver("gc-plaintext", _gc_plaintext_drivers,
                 batched=BatchedPlaintextDriver)
 register_driver("gc-2party", _gc_two_party_drivers, parties=2,
                 batched=BatchedGCDriver)
 register_driver("ckks", _ckks_drivers, batched=BatchedCkksDriver)
+register_driver("shamir", _shamir_drivers, batched=BatchedShamirDriver)
+register_driver("shamir-3party", _shamir_fixed(3),
+                batched=BatchedShamirDriver)
+register_driver("shamir-5party", _shamir_fixed(5),
+                batched=BatchedShamirDriver)
+
+
+@dataclasses.dataclass
+class WorkerScenarios:
+    """Per-worker §8.2 scenario timings (model outputs) + plan metadata."""
+    unbounded: SimResult
+    os: SimResult
+    mage: SimResult
+    report: PlanReport
+    config: PlanConfig
+    working_set_pages: int
+    page_bytes: int
+    instructions: int
+    program_bytes: int                   # memory program size (file or est.)
 
 
 class Session:
@@ -619,6 +677,52 @@ class Session:
             planned.append(pf)
         sess.adopt_plan(planned)
         return sess
+
+    def simulate(self, cost_fn: Callable, model: DeviceModel | None = None,
+                 os_page_bytes: int | None = None,
+                 slot_bytes: int | None = None,
+                 core: str = "array") -> list[WorkerScenarios]:
+        """Replay the three §8.2 scenarios (Unbounded / OS swap / MAGE)
+        per worker with the given per-instruction cost model: host work,
+        whose seconds are model outputs.
+
+        ``core`` picks the simulator core: ``"array"`` (the default)
+        replays record chunks through the vectorized cores, pricing whole
+        chunks with ``cost_fn.cost_chunk`` when the cost object has one;
+        ``"scalar"`` runs the JAX package's per-instruction loops.  The
+        results are exactly equal either way."""
+        if self.spec.plan_mode == "unbounded":
+            raise ValueError("simulate() compares scenarios under a memory "
+                             "budget; plan_mode='unbounded' has none")
+        planned = self.plan()
+        if len(self.configs) != len(planned):
+            raise ValueError(
+                "simulate() needs the plan configs and reports of an "
+                "in-session plan(); a Session loaded with from_plan() can "
+                "only execute() its artifacts")
+        progs = self.trace()
+        sb = slot_bytes if slot_bytes is not None \
+            else SLOT_BYTES[self.protocol]
+        out = []
+        for wk, prog in enumerate(progs):
+            page_bytes = prog.page_slots * sb
+            cfg = self.configs[wk]
+            ub = simulate_unbounded(prog, cost_fn, core=core)
+            osr = simulate_os_paging(prog, cost_fn, cfg.num_frames,
+                                     page_bytes, model,
+                                     os_page_bytes=os_page_bytes, core=core)
+            mem = planned[wk]
+            mage = simulate_memory_program(mem, cost_fn, page_bytes, model,
+                                           core=core)
+            nbytes = os.path.getsize(mem.path) \
+                if isinstance(mem, ProgramFile) else len(mem) * RECORD_BYTES
+            out.append(WorkerScenarios(
+                unbounded=ub, os=osr, mage=mage,
+                report=self.plan_reports[wk], config=cfg,
+                working_set_pages=self.working_set(wk),
+                page_bytes=page_bytes, instructions=len(prog),
+                program_bytes=nbytes))
+        return out
 
     def _driver_name(self, real: bool | None) -> str:
         if real is None or self.protocol != "gc":

@@ -258,7 +258,7 @@ def flat_touches(rec: np.ndarray, shift: int, psize: int
     Returns ``(counts, rows, pages, flags)``: per-instruction touch counts
     plus flat per-touch arrays in touch order (the order ``compute_touches``
     produces).  Shared by the annotation pass, the record-array replacement
-    core and working-set sizing."""
+    core, and the streaming OS-paging simulator."""
     pages, flags, present = _chunk_touches(rec, shift, psize)
     counts = present.sum(axis=1).astype(np.int64)
     rows, slots = np.nonzero(present)           # row-major: touch order
@@ -432,37 +432,47 @@ def touches_from_records(rec: np.ndarray, shift: int, psize: int,
 
 def iter_touch_chunks(prog: Program | ProgramFile,
                       chunk_instrs: int = DEFAULT_CHUNK_INSTRS,
-                      decode: bool = True):
+                      decode: bool = True, records: bool = False):
     """Yield ``(instrs, offsets, pages, flags)`` per chunk, FREE-stripped.
 
-    THE shared touch-iteration helper for chunk-streaming consumers
-    (working-set sizing): O(chunk) memory for a ProgramFile; in-memory
-    Programs are encoded chunk-by-chunk (falling back to a
-    ``compute_touches`` slice for chunks the record format cannot
-    express, e.g. page-straddling spans).  ``decode=False`` yields the
-    chunk's instruction COUNT in place of the instruction list, so
-    touch-only consumers skip the per-instruction Instr construction."""
+    THE shared touch-iteration helper for chunk-streaming consumers (the
+    OS-paging simulator, working-set sizing): O(chunk) memory for a
+    ProgramFile; in-memory Programs are encoded chunk-by-chunk (falling
+    back to a ``compute_touches`` slice for chunks the record format
+    cannot express, e.g. page-straddling spans).  ``decode=False`` yields
+    the chunk's instruction COUNT in place of the instruction list, so
+    touch-only consumers skip the per-instruction Instr construction.
+
+    ``records=True`` appends the chunk's [m, RECORD_WORDS] record array
+    as a fifth element (what the array simulator core prices with one
+    ``cost_chunk`` call).  On an in-memory fallback chunk the record
+    array is ``None`` and the instruction list is yielded regardless of
+    ``decode``: consumers price those chunks with the scalar cost."""
     shift, psize = prog.page_shift, prog.page_slots
     if not hasattr(prog, "instrs"):
         for _s, rec in prog.iter_chunks(chunk_instrs):
             counts, _rows, pg, fl = flat_touches(rec, shift, psize)
             offs = np.zeros(rec.shape[0] + 1, dtype=np.int64)
             np.cumsum(counts, out=offs[1:])
-            yield (decode_chunk(rec) if decode else rec.shape[0]), offs, \
-                pg, fl
+            head = decode_chunk(rec) if decode else rec.shape[0]
+            yield (head, offs, pg, fl, rec) if records \
+                else (head, offs, pg, fl)
         return
     instrs = strip_frees(prog.instrs)
     for s in range(0, len(instrs), chunk_instrs):
         sub = instrs[s:s + chunk_instrs]
+        rec = None
         try:
-            counts, _rows, pg, fl = flat_touches(encode_chunk(sub), shift,
-                                                 psize)
+            rec = encode_chunk(sub)
+            counts, _rows, pg, fl = flat_touches(rec, shift, psize)
             offs = np.zeros(len(sub) + 1, dtype=np.int64)
             np.cumsum(counts, out=offs[1:])
         except (TypeError, ValueError):
+            rec = None
             t = compute_touches(prog, sub)
             offs, pg, fl = t.offsets, t.pages, t.flags
-        yield (sub if decode else len(sub)), offs, pg, fl
+        head = sub if (decode or (records and rec is None)) else len(sub)
+        yield (head, offs, pg, fl, rec) if records else (head, offs, pg, fl)
 
 
 class AnnotationReader:

@@ -1,2 +1,2 @@
-"""Protocol drivers of the port: ``garbled`` (two-party half gates) and
-``ckks`` (RNS CKKS)."""
+"""Protocol drivers of the port: ``garbled`` (two-party half gates),
+``ckks`` (RNS CKKS) and ``shamir`` (n-party Shamir sharing)."""

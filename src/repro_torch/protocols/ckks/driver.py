@@ -7,19 +7,21 @@ a ciphertext at level l occupies ncomp*(l+1)*N slots, an encoded plaintext
 (levels+1)*N.  Ciphertexts are flat buffers, so swapping them is a byte
 copy.  The driver maps bytecode ops 1:1 onto ``cipher.py``, including the
 paper's lazy relinearization (CT_MUL_NR + CT_ADD on 3-component
-ciphertexts + one CT_RELIN).  The JAX package's ``CkksCostModel`` waits for
-the simulator slice: this driver has no ``cost``.
+ciphertexts + one CT_RELIN).  ``CkksCostModel`` is the timing simulator's
+per-instruction price (the JAX package's, value for value).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from collections import Counter
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ...core.bytecode import Op
+from ...core.bytecode import Instr, Op
 from ...core.dsl import Value
 from ...core.engine import ProtocolDriver
 from .cipher import CkksContext
@@ -36,6 +38,88 @@ def homomorphic_ops(op_counts: dict[str, int]) -> int:
     """The homomorphic operations among instruction counts by op name."""
     names = {op.name for op in HOMOMORPHIC_OPS}
     return sum(k for name, k in op_counts.items() if name in names)
+
+
+@dataclasses.dataclass
+class CkksCostModel:
+    """Per-op seconds from NTT counts (calibrated to single-core SEAL-era
+    throughput: an N-point NTT ~ kappa*N*log2(N) seconds)."""
+    kappa: float = 2.0e-9
+    pointwise: float = 0.3e-9     # per-coefficient modmul epilogue
+    instr_overhead_s: float = 2e-6
+
+    def ntt_s(self, n: int) -> float:
+        return self.kappa * n * math.log2(max(n, 2))
+
+    def cost(self, instr: Instr, n_ring: int) -> float:
+        op, imm = instr.op, instr.imm
+        t = self.instr_overhead_s
+        if op == Op.CT_ADD:
+            lvl, nc = imm[0], max(imm[1], imm[2])
+            t += nc * (lvl + 1) * n_ring * self.pointwise
+        elif op in (Op.CT_MUL, Op.CT_MUL_NR, Op.CT_RELIN, Op.CT_MUL_PLAIN):
+            lvl = imm[0]
+            nprime = lvl + 1
+            if op in (Op.CT_MUL, Op.CT_MUL_NR):
+                ntts = 7 * nprime                      # 4 fwd + 3 inv
+            else:
+                ntts = 0
+            if op in (Op.CT_MUL, Op.CT_RELIN):
+                ntts += nprime * (nprime + 1) + 2 * (nprime + 1) + 2 * nprime
+            if op == Op.CT_MUL_PLAIN:
+                ntts += 2 * 2 * nprime + nprime
+            t += ntts * self.ntt_s(n_ring)
+            t += nprime * n_ring * 6 * self.pointwise
+        elif op in (Op.CT_ADD_PLAIN,):
+            lvl = imm[0]
+            t += (lvl + 1) * n_ring * self.pointwise
+        elif op in (Op.INPUT, Op.OUTPUT):
+            t += 4 * self.ntt_s(n_ring)
+        return t
+
+    def cost_chunk(self, ops: np.ndarray, imm: np.ndarray,
+                   n_ring: int) -> np.ndarray:
+        """Vectorized :meth:`cost` over one record chunk.
+
+        ``ops`` is int64 [m]; ``imm`` the zero-padded int64 immediate
+        matrix (the NTT-count formulas only read the integer level/
+        component immediates).  Per-instruction results are IDENTICAL to
+        the scalar path: every count stays exact int64 and the float
+        operations replay ``cost``'s order (overhead, then NTTs, then the
+        pointwise epilogue)."""
+        ops = np.asarray(ops, dtype=np.int64)
+        imm = np.asarray(imm, dtype=np.int64)
+        t = np.full(ops.shape[0], self.instr_overhead_s, dtype=np.float64)
+        ntt = self.ntt_s(n_ring)
+        lvl = imm[:, 0]
+
+        mk = ops == int(Op.CT_ADD)
+        if mk.any():
+            nc = np.maximum(imm[mk, 1], imm[mk, 2])
+            t[mk] += (nc * (lvl[mk] + 1) * n_ring).astype(np.float64) \
+                * self.pointwise
+        is_mul = (ops == int(Op.CT_MUL)) | (ops == int(Op.CT_MUL_NR))
+        mk = is_mul | (ops == int(Op.CT_RELIN)) | (ops == int(Op.CT_MUL_PLAIN))
+        if mk.any():
+            nprime = lvl[mk] + 1
+            ntts = np.where(is_mul[mk], 7 * nprime, 0)
+            relin = is_mul[mk] & (ops[mk] == int(Op.CT_MUL))
+            relin |= ops[mk] == int(Op.CT_RELIN)
+            ntts = ntts + np.where(
+                relin, nprime * (nprime + 1) + 2 * (nprime + 1) + 2 * nprime,
+                0)
+            ntts = ntts + np.where(ops[mk] == int(Op.CT_MUL_PLAIN),
+                                   2 * 2 * nprime + nprime, 0)
+            t[mk] += ntts.astype(np.float64) * ntt
+            t[mk] += (nprime * n_ring * 6).astype(np.float64) * self.pointwise
+        mk = ops == int(Op.CT_ADD_PLAIN)
+        if mk.any():
+            t[mk] += ((lvl[mk] + 1) * n_ring).astype(np.float64) \
+                * self.pointwise
+        mk = (ops == int(Op.INPUT)) | (ops == int(Op.OUTPUT))
+        if mk.any():
+            t[mk] += 4 * ntt
+        return t
 
 
 class CkksDriver(ProtocolDriver):

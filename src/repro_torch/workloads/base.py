@@ -7,11 +7,13 @@ wires; CKKS: 128 KiB pages of 8-byte words).  Inputs are materialized
 first, then the computation runs, then outputs are written (§8.1.3), so
 memory pressure is real.
 
-Registered: the five garbled-circuit workloads, the five CKKS workloads
-and the two §8.8 applications (passreuse, pir).  A CKKS workload's
-``inputs`` and ``oracle`` also take ``ckks_params``, the parameters the job
-runs at.  A build traces one program per worker (``ProgramOptions``'
-``worker`` and ``num_workers``); passreuse takes one worker only.
+Registered: the five garbled-circuit workloads, the five CKKS workloads,
+the two §8.8 applications (passreuse, pir) and the two n-party Shamir
+workloads (shamir_stats, shamir_cmp; the parties are the job's
+workers).  A CKKS workload's ``inputs`` and ``oracle`` also take
+``ckks_params``, the parameters the job runs at.  A build traces one
+program per worker (``ProgramOptions``' ``worker`` and ``num_workers``);
+passreuse takes one worker only.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ CKKS_PAGE_SHIFT = 14  # 16384 words = 128 KiB pages (scaled with our N)
 @dataclasses.dataclass
 class Workload:
     name: str
-    protocol: str                      # 'gc' | 'ckks'
+    protocol: str                      # 'gc' | 'ckks' | 'shamir'
     build: Callable[[ProgramOptions], None]
     inputs: Callable[[int, int, int], Callable[[int], np.ndarray]]
     # (problem_size, worker, num_workers) -> provider(tag)
@@ -58,7 +60,8 @@ def register(w: Workload) -> Workload:
 
 
 def get(name: str) -> Workload:
-    from . import apps, ckks_workloads, gc_workloads  # noqa: F401
+    from . import (apps, ckks_workloads, gc_workloads,  # noqa: F401
+                   shamir_workloads)
     try:
         return REGISTRY[name]
     except KeyError:

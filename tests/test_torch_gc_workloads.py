@@ -36,7 +36,8 @@ GC_WORKLOADS = ["merge", "sort", "ljoin", "mvmul", "binfclayer", "passreuse"]
 
 def test_registry_holds_every_workload():
     assert all_names() == sorted(GC_WORKLOADS + [
-        "rsum", "rstats", "rmvmul", "n_rmatmul", "t_rmatmul", "pir"])
+        "rsum", "rstats", "rmvmul", "n_rmatmul", "t_rmatmul", "pir",
+        "shamir_stats", "shamir_cmp"])
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
