@@ -6,10 +6,11 @@
 It drives the port's three kernel paths: the planned two-party garbled
 merge (GC) and the other GC workloads and apps, the planned CKKS jobs
 (both kinds of job at four workers a party, in one process and as a fleet
-of one process a rank from saved plans) and serving qwen2-1.5b (and,
-briefly, stablelm-3b) with the paged decode; and two paths without a
-kernel: the n-party Shamir jobs on the card and the §8.2 scenario
-simulator (``bench``, host work).
+of one process a rank from saved plans, and both served by the plan-cache
+daemon) and serving qwen2-1.5b (and, briefly, stablelm-3b) with the paged
+decode; and three paths without a kernel of their own: the n-party
+Shamir jobs on the card, the §8.2 scenario simulator (``bench``, host
+work) and secure aggregation (its sums on the card).
 TF32 stays off for the whole run: the plain versions' float32 products run
 in full float32.  Phases, each raising on failure:
 
@@ -161,16 +162,44 @@ in full float32.  Phases, each raising on failure:
                  phase's measured planned / unbounded execute time (the
                  simulator's seconds are outputs of its STORAGE
                  calibration, the same on every host);
-16. record       each kernel timed at each path's launch sizes, beside
+16. serve daemon ``python -m repro_torch serve`` as a process of its own
+                 on the card: serve_bench's plan-only cases (merge 4096,
+                 sort 2048, rsum 128 at budget 0.4, streaming) five rounds
+                 cold (no cache) and five hot, jobs/s both ways, hot plan
+                 digests equal to cold, and the daemon's counters showing
+                 no trace and no plan while hot; merge n=512 (two-party,
+                 the half gates), rsum n=128 (ring 1024, the NTT kernels)
+                 and aggsum n=512 (two-party) at 0.4 executed on its card
+                 and checked, cold then hot (equal outputs digests and
+                 kernel launches, plan and batch schedule from the cache;
+                 the launches from the daemon's own counters, read just
+                 before and after each run); an oversized job rejected
+                 through ``python -m repro_torch submit`` (exit 3) and two
+                 clients served at once;
+17. aggregate    secure aggregation, the servers' share matrices and sums
+                 on the card, every round checked bit for bit against
+                 expected_sum: agg_bench's three rows at full size (2000
+                 clients x 64 words x 3 rounds: fan-in under a 256 KiB
+                 in-flight bound, each gateway link's reorder peak at or
+                 under the knob plus its largest message; a shaped WAN of
+                 2 ms and 200 MB/s with latency percentiles; the round-plan
+                 cache cold then hot, no re-plan hot), a model-update round
+                 (1000 clients x 65536 words: a 512 MiB share matrix a
+                 server) and the 2000 x 64 round as four processes over
+                 localhost TCP (``python -m repro_torch agg --rank K``; 2
+                 servers, 2 gateways) equal to the in-process run
+                 (aggregates, survivors, link bytes); the card's int64 sum
+                 wraps as the uint64 sum on words near 2**64;
+18. record       each kernel timed at each path's launch sizes, beside
                  its bound, its plain version and (the product) the
                  PyTorch expression, with the host's time per wrapper call
                  and the empty kernel; the NTT kernels also at 4096 rows,
                  with a host breakdown of a wrapper call; the fused kernel
                  over its launch shapes, beside the three standalone
                  launches each one replaces, timed at the same sizes;
-17. profile      the GC path's shape at n=256 and the CKKS main job under
+19. profile      the GC path's shape at n=256 and the CKKS main job under
                  torch.profiler: device time by op, and the busy share;
-18. attn kernels the paged-attention kernels (split and combine) against
+20. attn kernels the paged-attention kernels (split and combine) against
                  their plain version on the card (rtol 1e-4, atol 1e-5),
                  f32 and bf16 pages: the JAX package's test shapes, qwen2's
                  head shape at batch 1 and 8 (ragged lengths, permuted
@@ -179,26 +208,26 @@ in full float32.  Phases, each raising on failure:
                  over host tables and over tables prepared with 2-page
                  chunks, stablelm-3b's heads (head_dim 80) and a group of
                  16;
-19. serve parity reduced qwen2 in f32 with nonzero biases served on the
+21. serve parity reduced qwen2 in f32 with nonzero biases served on the
                  card equals the same run with device="cpu": greedy tokens,
                  and teacher-forced logits within relative 1e-4, for the
                  paged and the contiguous decode;
-20. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
+22. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
                  run_server with the paged decode: 4 requests of 200-token
                  prompts, 64 new tokens each, every decode attention through
                  the kernels (252 steps x 28 layers wrapper calls, the
                  tables prepared once a step), held against the contiguous
                  decode teacher-forced on its tokens;
-21. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
+23. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
                  64 prompt tokens and 8 new ones, paged (7 steps x 32
                  layers wrapper calls) against its contiguous decode;
-22. attn record  a wrapper call timed at the main path's lengths and at the
+24. attn record  a wrapper call timed at the main path's lengths and at the
                  32768-token batch: device time summed over the kernels it
                  launches (split and combine also apart, profiler), the
                  host's time per call over prepared and over host tables
                  (events), beside the bound, the plain version and gather +
                  scaled_dot_product_attention;
-23. serve profile a few decode steps of the serve main job under
+25. serve profile a few decode steps of the serve main job under
                  torch.profiler: device time by op and the busy share.
 
 The last four lines are a JSON summary of the run's headline numbers, the
@@ -218,9 +247,11 @@ import multiprocessing
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3359,6 +3390,455 @@ def phase_bench(case, gc_main_measured: dict | None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the serve daemon: the artifact cache, admission and jobs on the card
+# ---------------------------------------------------------------------------
+
+#: the plan-only cases (benchmarks/serve_bench.py:32), at budget 0.4,
+#: streaming, submitted SERVE_ROUNDS rounds cold and SERVE_ROUNDS hot
+SERVE_PLAN_CASES = [("merge", 4096), ("sort", 2048), ("rsum", 128)]
+SERVE_ROUNDS = 5
+#: executed on the daemon's card, cold then hot, checked against the
+#: oracle: (workload, n, path) -- GC through the half gates, CKKS (at the
+#: CKKS main job's width) through the NTT kernels.  merge and aggsum cut
+#: 1024 -> 512 for the time limit (PERF.md section 4)
+SERVE_EXEC = [("merge", 512, "serve daemon"), ("rsum", 128, "serve daemon"),
+              ("aggsum", 512, "aggsum")]
+SERVE_BUDGET = dict(memory_budget=0.4, plan_mode="streaming")
+
+
+def _serve_spec(wl: str, n: int) -> JobSpec:
+    extra = dict(ckks_ring=BENCH_CKKS.n_ring, ckks_levels=BENCH_CKKS.levels) \
+        if get_workload(wl).protocol == "ckks" else {}
+    return JobSpec(wl, n=n, **SERVE_BUDGET, **extra)
+
+
+def _kernel_delta(after: dict, before: dict) -> tuple[dict, dict]:
+    """Two daemon ``status`` kernel counters (``kernels.kernel_counts``) ->
+    what ran between them, in ``ops.counts()`` / ``nops.counts()`` form."""
+    (gc1, ntt1), (gc0, ntt0) = (_fleet_counts([{"kernel_counts": k}])
+                                for k in (after, before))
+
+    def sub(a, b):
+        if isinstance(a, dict):
+            return {k: sub(v, b.get(k, {} if isinstance(v, dict) else 0))
+                    for k, v in a.items()}
+        return a - b
+    gc, ntt = sub(gc1, gc0), sub(ntt1, ntt0)
+    for sizes in (*gc["launch_sizes"].values(),
+                  *ntt["launch_sizes"].values(), ntt["mul_shapes"]):
+        for m in [m for m, k in sizes.items() if not k]:
+            del sizes[m]
+    return gc, ntt
+
+
+def _add_counts(a, b):
+    """Two counters of one form, summed (a key either lacks counts 0)."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        a, b = a or {}, b or {}
+        return {k: _add_counts(a.get(k), b.get(k)) for k in a.keys() | b.keys()}
+    return (a or 0) + (b or 0)
+
+
+def _start_daemon(tmp: str) -> tuple[subprocess.Popen, str]:
+    """``python -m repro_torch serve`` in a process of its own, on the card
+    (unix socket; TCP where the path would be too long for one)."""
+    from repro_torch.core.transport import pick_free_ports
+    sock = os.path.join(tmp, "mage.sock")
+    where = ["--socket", sock]
+    if len(sock) > 100:
+        port = pick_free_ports(1)[0]
+        where, sock = ["--port", str(port)], f"127.0.0.1:{port}"
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    log_path = os.path.join(tmp, "daemon.log")
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "faulthandler", "-m", "repro_torch",
+         "serve", "--cache",
+             os.path.join(tmp, "cache"), *where], env=env, stdout=logf,
+            stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    deadline = time.monotonic() + 120
+    while True:
+        with open(log_path) as f:
+            if "serving on" in f.read():
+                return proc, sock
+        if proc.poll() is not None or time.monotonic() > deadline:
+            with open(log_path) as f:
+                raise AssertionError(f"serve daemon did not start:\n"
+                                     f"{f.read()}")
+        time.sleep(0.05)
+
+
+def _serve_plan_rounds(c) -> dict:
+    """The plan-only cases, SERVE_ROUNDS rounds cold (no cache), one warm
+    pass, then SERVE_ROUNDS rounds hot: jobs/s both ways, hot digests ==
+    cold, and the daemon's own counters show no trace and no plan hot."""
+    specs = [JobSpec(w, n=n, **SERVE_BUDGET) for w, n in SERVE_PLAN_CASES]
+
+    def drive(use_cache: bool) -> dict:
+        digests = {}
+        t0 = time.perf_counter()
+        for _ in range(SERVE_ROUNDS):
+            for spec in specs:
+                r = c.submit(spec, use_cache=use_cache)
+                digests[f"{spec.workload}/{spec.n}"] = r["digests"]["plan"]
+        dt = time.perf_counter() - t0
+        return {"jobs": SERVE_ROUNDS * len(specs), "seconds": dt,
+                "jobs_per_s": SERVE_ROUNDS * len(specs) / dt,
+                "digests": digests}
+    cold = drive(False)
+    for spec in specs:
+        c.submit(spec)
+    before = c.status()["cache"]
+    hot = drive(True)
+    after = c.status()["cache"]
+    if after["trace_misses"] != before["trace_misses"] or \
+            after["plan_misses"] != before["plan_misses"] or \
+            after["plan_hits"] != before["plan_hits"] + hot["jobs"]:
+        raise AssertionError(f"serve daemon: the hot rounds traced or "
+                             f"planned: {before} -> {after}")
+    if hot["digests"] != cold["digests"]:
+        raise AssertionError("serve daemon: hot plan digests != cold")
+    log(f"serve daemon: plan only {SERVE_PLAN_CASES} at budget 0.4, "
+        f"streaming: cold {cold['jobs_per_s']:.2f} jobs/s ({cold['jobs']} "
+        f"jobs, {cold['seconds']:.2f} s), hot {hot['jobs_per_s']:.2f} "
+        f"jobs/s ({hot['seconds']:.2f} s), "
+        f"{hot['jobs_per_s'] / cold['jobs_per_s']:.2f}x; hot digests == "
+        f"cold; hot rounds: 0 trace misses, 0 plan misses, "
+        f"{after['plan_hits'] - before['plan_hits']} plan hits")
+    return {"cold": {k: v for k, v in cold.items() if k != "digests"},
+            "hot": {k: v for k, v in hot.items() if k != "digests"},
+            "speedup": hot["jobs_per_s"] / cold["jobs_per_s"]}
+
+
+def _serve_exec(c) -> tuple[dict, dict]:
+    """SERVE_EXEC on the daemon's card, cold then hot: the hot run's plan
+    and outputs digests equal the cold run's, its plan and batch schedule
+    hit, and both launch the same kernels.  Returns the metrics and each
+    path's kernel counters (the daemon's, read just before and after)."""
+    res, paths = {}, {}
+    for wl, n, path in SERVE_EXEC:
+        spec = _serve_spec(wl, n)
+        k0 = c.status()["kernels"]
+        cold = c.submit(spec, execute=True, check=True)
+        k1 = c.status()["kernels"]
+        hot = c.submit(spec, execute=True, check=True)
+        k2 = c.status()["kernels"]
+        (gc_c, ntt_c), (gc_h, ntt_h) = _kernel_delta(k1, k0), \
+            _kernel_delta(k2, k1)
+        want = {"trace": "skipped", "plan": "hit", "batch": "hit"}
+        if hot["cache"] != want or cold["cache"]["plan"] != "miss":
+            raise AssertionError(f"serve daemon {wl} {n}: cache events cold "
+                                 f"{cold['cache']}, hot {hot['cache']}")
+        if hot["outputs_digest"] != cold["outputs_digest"] or \
+                hot["digests"] != cold["digests"]:
+            raise AssertionError(f"serve daemon {wl} {n}: hot digests != "
+                                 f"cold")
+        if (gc_c, ntt_c) != (gc_h, ntt_h):
+            raise AssertionError(f"serve daemon {wl} {n}: hot launches != "
+                                 f"cold")
+        if any(ntt_c["plain_calls"].values()):
+            raise AssertionError(f"serve daemon {wl} {n}: plain NTT calls "
+                                 f"{ntt_c['plain_calls']}")
+        gc_run = get_workload(wl).protocol == "gc"
+        if (gc_run and not (gc_c["garble_launches"] and
+                            gc_c["eval_launches"])) or \
+                (not gc_run and not ntt_c["launches"]["ntt_mul"]):
+            raise AssertionError(f"serve daemon {wl} {n}: no kernel launch "
+                                 f"({gc_c['garble_launches']} garble, "
+                                 f"{ntt_c['launches']})")
+        both = (_add_counts(gc_c, gc_h), _add_counts(ntt_c, ntt_h))
+        paths[path] = both if path not in paths else \
+            tuple(_add_counts(a, b) for a, b in zip(paths[path], both))
+        res[f"{wl}-{n}"] = {
+            "frames": cold["frames"],
+            "cold_s": cold["timings"]["total_s"],
+            "hot_s": hot["timings"]["total_s"],
+            "cold_execute_s": cold["timings"]["execute_s"],
+            "hot_execute_s": hot["timings"]["execute_s"],
+            "hot_plan_s": hot["timings"]["plan_s"],
+            "cold_plan_s": cold["timings"]["plan_s"],
+            "garble_launches": gc_c["garble_launches"],
+            "ands": gc_c["garble_ands"],
+            "ntt_launches": ntt_c["launches"]}
+        log(f"serve daemon: {wl} n={n} at 0.4 ({cold['frames']} frames) on "
+            f"the card, checked: cold {cold['timings']['total_s']:.3f} s "
+            f"(plan {cold['timings']['plan_s']:.3f}, execute "
+            f"{cold['timings']['execute_s']:.3f}), hot "
+            f"{hot['timings']['total_s']:.3f} s (plan "
+            f"{hot['timings']['plan_s']:.4f}, execute "
+            f"{hot['timings']['execute_s']:.3f}); outputs digest "
+            f"{hot['outputs_digest']} both; each run "
+            + (f"{gc_c['garble_launches']} garble / {gc_c['eval_launches']} "
+               f"eval launches ({gc_c['garble_ands']} ANDs)" if gc_run else
+               f"NTT launches {ntt_c['launches']}"))
+    return res, paths
+
+
+def _serve_admission(c, address: str) -> dict:
+    """An oversized job is rejected (through ``python -m repro_torch
+    submit``: exit 3); two clients served at once, each job's outputs
+    equal to its single run's."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "submit", "--connect",
+         address, "--workload", "merge", "-n", "1024", "--budget",
+         "1000000"], env=env, capture_output=True, text=True, timeout=120)
+    if out.returncode != 3 or "never be admitted" not in out.stderr:
+        raise AssertionError(f"serve daemon: oversized job: exit "
+                             f"{out.returncode}, {out.stderr[-400:]}")
+    from repro_torch.serve_daemon import serve_client
+    jobs = {"rsum": _serve_spec("rsum", 128),
+            "aggsum": JobSpec("aggsum", n=64, **SERVE_BUDGET)}
+    single = {k: c.submit(s, execute=True, check=True)["outputs_digest"]
+              for k, s in jobs.items()}
+    got, errs = {}, []
+    a0 = c.status()["admission"]
+
+    def tenant(name):
+        try:
+            with serve_client(address) as cc:
+                got[name] = cc.submit(jobs[name], execute=True, check=True)
+        except Exception as e:            # noqa: BLE001 (raised below)
+            errs.append(e)
+    threads = [threading.Thread(target=tenant, args=(k,)) for k in jobs]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    both_s = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    a1 = c.status()["admission"]
+    if {k: r["outputs_digest"] for k, r in got.items()} != single or \
+            a1["admitted"] != a0["admitted"] + 2 or a1["active"]:
+        raise AssertionError(f"serve daemon: two tenants: {got}, {a1}")
+    log(f"serve daemon: oversized job rejected through `submit` (exit 3); "
+        f"two clients at once (rsum 128 and aggsum 64, both executed on the "
+        f"card) served in {both_s:.3f} s, outputs equal to their single "
+        f"runs; admission {a1}")
+    return {"two_tenants_s": both_s, "admission": a1,
+            "tenant_s": {k: r["timings"]["total_s"] for k, r in got.items()}}
+
+
+def phase_serve_daemon(dev) -> tuple[dict, dict]:
+    """The serve daemon as a process of its own on the card: plan-only
+    rounds cold and hot, jobs executed on the card cold and hot, and
+    admission.  Returns the metrics and each executed path's kernel
+    counters."""
+    import tempfile
+    from repro_torch.serve_daemon import serve_client
+    tmp = tempfile.mkdtemp(prefix="mage_serve_")
+    t0 = time.perf_counter()
+    proc, address = _start_daemon(tmp)
+    start_s = time.perf_counter() - t0
+    try:
+        with serve_client(address) as c:
+            st = c.status()
+            if not st["device"].startswith("cuda"):
+                raise AssertionError(f"serve daemon on {st['device']}")
+            res = {"start_s": start_s, "plan": _serve_plan_rounds(c)}
+            res["exec"], paths = _serve_exec(c)
+            res["admission"] = _serve_admission(c, address)
+            res["cache"] = c.status()["cache"]
+            c.shutdown()
+        t0 = time.perf_counter()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.send_signal(signal.SIGABRT)     # faulthandler: the stacks
+            proc.wait(timeout=30)
+            with open(os.path.join(tmp, "daemon.log")) as f:
+                raise AssertionError(f"serve daemon: still running 30 s "
+                                     f"after shutdown:\n{f.read()[-6000:]}")
+        res["exit_s"] = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"serve daemon: up in {start_s:.2f} s; cache at the end "
+        f"{res['cache']['entries']} entries, {res['cache']['total_bytes']} "
+        f"bytes, {res['cache']['invalid']} invalid")
+    return res, paths
+
+
+# ---------------------------------------------------------------------------
+# secure aggregation: the servers' share matrices and sums on the card
+# ---------------------------------------------------------------------------
+
+#: benchmarks/agg_bench.py:37-48: 2000 clients x 64 words x 3 rounds, the
+#: fan-in row's 256 KiB in-flight bound, its WAN of 2 ms and 200 MB/s
+AGG_FULL = dict(clients=2000, vec_len=64, rounds=3)
+AGG_INFLIGHT = 256 << 10
+AGG_WAN = FabricSpec(latency_s=0.002, bandwidth=200e6)
+#: a model update: 512 KiB a share, a 512 MiB share matrix a server
+AGG_MODEL = dict(clients=1000, vec_len=65536, rounds=1)
+#: the four-process run over localhost TCP
+AGG_TCP = dict(clients=2000, vec_len=64, rounds=1)
+
+
+def _agg_bounded(res, spec) -> int:
+    """Every gateway link's reorder peak at or under the knob plus the
+    largest message it carries; returns the worst peak."""
+    from repro_torch.aggregate import build_round_plan, largest_message
+    plan = build_round_plan(spec)
+    worst = 0
+    for (src, dst), st in res.reorder.items():
+        if dst < spec.servers <= src:
+            big = largest_message(spec, plan, src - spec.servers)
+            worst = max(worst, st.peak_bytes)
+            if st.max_bytes != spec.max_inflight_bytes or \
+                    st.peak_bytes > st.max_bytes + big:
+                raise AssertionError(f"aggregate: link {src}->{dst} peak "
+                                     f"{st.peak_bytes} B over the knob "
+                                     f"{st.max_bytes} + {big} B")
+    return worst
+
+
+def _agg_wraps(dev) -> None:
+    """The server's reduction on the card: an int64 sum over words near
+    2**64 equals the uint64 sum mod 2**64 (NumPy)."""
+    rng = np.random.default_rng(64)
+    x = np.uint64(2**64 - 1) - rng.integers(0, 1 << 20, (2000, 64),
+                                            dtype=np.uint64)
+    got = torch.from_numpy(x.view(np.int64)).to(dev).sum(dim=0).cpu()
+    if not np.array_equal(got.numpy().view(np.uint64),
+                          x.sum(axis=0, dtype=np.uint64)):
+        raise AssertionError("aggregate: the card's int64 sum does not wrap "
+                             "as the uint64 sum")
+
+
+def _agg_run(name: str, spec, dev, **kw) -> tuple[dict, object]:
+    from repro_torch.aggregate import run_aggregation, verify_aggregates
+    res = run_aggregation(spec, device=dev, **kw)
+    verify_aggregates(res)
+    if len(res.rounds) != spec.rounds or res.device != str(dev):
+        raise AssertionError(f"aggregate {name}: {len(res.rounds)} rounds on "
+                             f"{res.device}")
+    out = {"seconds": res.seconds, "clients_per_s": res.clients_per_s,
+           "latency_ms": res.latency_ms,
+           "link_bytes": sum(st.bytes for st in res.link_totals.values()),
+           "peak_frames": res.admission["peak_frames"],
+           "plan_events": res.plan_events}
+    return out, res
+
+
+def _agg_tcp(spec, dev, tmp: str) -> dict:
+    """The same job as four processes, one a rank, over localhost TCP
+    (``python -m repro_torch agg --rank K``): rank 0's aggregates and
+    survivors and every rank's link bytes equal the in-process run's."""
+    from repro_torch.core.transport import pick_free_ports
+    _, want = _agg_run("tcp reference", spec, dev)
+    ranks = spec.num_endpoints
+    peers = ",".join(f"127.0.0.1:{p}" for p in pick_free_ports(ranks))
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    args = ["--clients", str(spec.clients), "--vec-len", str(spec.vec_len),
+            "--rounds", str(spec.rounds), "--servers", str(spec.servers),
+            "--gateways", str(spec.gateways), "--peers", peers]
+    outs = [os.path.join(tmp, f"agg{k}.json") for k in range(ranks)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch", "agg", *args, "--rank",
+         str(k), "--json", outs[k]] + (["--check"] if k == 0 else []),
+        env=env, stdout=subprocess.DEVNULL) for k in range(ranks)]
+    try:
+        for k, p in enumerate(procs):
+            if p.wait(timeout=180) != 0:
+                raise AssertionError(f"aggregate tcp: rank {k} exit "
+                                     f"{p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    docs = []
+    for o in outs:
+        with open(o) as f:
+            docs.append(json.load(f))
+    got = docs[0]["rounds"]
+    links = {k: v for d in docs for k, v in d["link_totals"].items()}
+    want_links = {f"{s}->{d}": {"messages": st.messages, "bytes": st.bytes}
+                  for (s, d), st in want.link_totals.items()}
+    if [r["aggregate"] for r in got] != [[int(v) for v in r.total]
+                                         for r in want.rounds] or \
+            [r["survivors"] for r in got] != [r.survivors
+                                              for r in want.rounds] or \
+            links != want_links:
+        raise AssertionError("aggregate tcp: four processes != in-process")
+    if not docs[0]["device"].startswith("cuda"):
+        raise AssertionError(f"aggregate tcp: rank 0 on {docs[0]['device']}")
+    return {"wall_s": wall, "rank0_s": docs[0]["seconds"],
+            "link_bytes": sum(v["bytes"] for v in links.values())}
+
+
+def phase_aggregate(dev) -> dict:
+    """Secure aggregation with the servers on the card: agg_bench's three
+    rows at full size (fan-in under the 256 KiB bound, the shaped WAN,
+    the plan cache cold then hot), a model-update round (a 512 MiB share
+    matrix a server), and four processes over TCP against the in-process
+    run; every round checked bit for bit by verify_aggregates."""
+    import tempfile
+    from repro_torch.aggregate import AggSpec
+    from repro_torch.serve_daemon import ArtifactCache
+    _agg_wraps(dev)
+    res = {}
+    spec = AggSpec(**AGG_FULL, max_inflight_bytes=AGG_INFLIGHT)
+    res["fanin"], r = _agg_run("fan-in", spec, dev)
+    res["fanin"]["reorder_peak_bytes"] = _agg_bounded(r, spec)
+    log(f"aggregate: fan-in {AGG_FULL} on the card, every round bit for "
+        f"bit: {r.clients_per_s:.0f} clients/s ({r.seconds:.3f} s), latency "
+        f"{ {k: round(v, 3) for k, v in r.latency_ms.items()} } ms, reorder "
+        f"peak {res['fanin']['reorder_peak_bytes']} B under the "
+        f"{AGG_INFLIGHT} B knob + the largest message, admission peak "
+        f"{r.admission['peak_frames']} frames")
+    res["wan"], r = _agg_run("wan", spec, dev, transport="shaped",
+                             fabric_spec=AGG_WAN)
+    if not r.latency_ms or r.latency_ms["p50"] < 1e3 * AGG_WAN.latency_s:
+        raise AssertionError(f"aggregate wan: latency {r.latency_ms}")
+    log(f"aggregate: shaped WAN ({AGG_WAN.latency_s * 1e3:.0f} ms, "
+        f"{AGG_WAN.bandwidth / 1e6:.0f} MB/s): {r.clients_per_s:.0f} "
+        f"clients/s, latency p50/p90/p99 "
+        + "/".join(f"{r.latency_ms[q]:.3f}" for q in ("p50", "p90", "p99"))
+        + f" ms, {res['wan']['link_bytes']} B on the links")
+    with tempfile.TemporaryDirectory(prefix="mage_agg_") as tmp:
+        spec = AggSpec(**AGG_FULL)
+        cold_cache = ArtifactCache(os.path.join(tmp, "cache"))
+        cold, _ = _agg_run("plan cache cold", spec, dev, cache=cold_cache)
+        hot_cache = ArtifactCache(os.path.join(tmp, "cache"))
+        hot, _ = _agg_run("plan cache hot", spec, dev, cache=hot_cache)
+        if cold["plan_events"] != ["miss"] + ["hit"] * (spec.rounds - 1) or \
+                hot["plan_events"] != ["hit"] * spec.rounds or \
+                hot_cache.stats.agg_misses != 0:
+            raise AssertionError(f"aggregate plan cache: cold "
+                                 f"{cold['plan_events']}, hot "
+                                 f"{hot['plan_events']}")
+        res["plan_cache"] = {"cold": cold, "hot": hot}
+        log(f"aggregate: plan cache cold {cold['plan_events']}, hot "
+            f"{hot['plan_events']} (agg_misses 0): {cold['seconds']:.3f} / "
+            f"{hot['seconds']:.3f} s")
+        spec = AggSpec(**AGG_MODEL)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res["model"], r = _agg_run("model update", spec, dev)
+        res["model"]["max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated(dev)
+        log(f"aggregate: model update {AGG_MODEL} (512 KiB a share, a "
+            f"{spec.clients * spec.vec_len * 8 >> 20} MiB share matrix a "
+            f"server on the card), bit for bit: {r.seconds:.3f} s, "
+            f"{r.clients_per_s:.0f} clients/s, max_memory_allocated "
+            f"{res['model']['max_memory_allocated']} B")
+        res["tcp"] = _agg_tcp(AggSpec(**AGG_TCP), dev, tmp)
+    log(f"aggregate: {AGG_TCP} as four processes over localhost TCP (2 "
+        f"servers on the card, 2 gateways) == in process: aggregates, "
+        f"survivors and link bytes ({res['tcp']['link_bytes']} B); wall "
+        f"{res['tcp']['wall_s']:.2f} s, rank 0 {res['tcp']['rank0_s']:.3f} "
+        f"s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the serving path: paged-attention kernel, parity, main job, record, profile
 # ---------------------------------------------------------------------------
 
@@ -4077,12 +4557,17 @@ def main() -> None:
     shamir = timed("shamir", phase_shamir, dev)
     with bench_pool:
         bench = timed("bench", phase_bench, bench, baselines["gc_main"])
+    daemon, d_paths = timed("serve daemon", phase_serve_daemon, dev)
+    aggregate = timed("aggregate", phase_aggregate, dev)
     rows, gate_launch = timed("record", kernel_record, dev, {
         "gc main": counts, "gc workloads": gc_counts, "workers": w_counts,
-        "fleet": f_counts, "streaming": s_counts}, errs)
+        "fleet": f_counts, "streaming": s_counts,
+        "serve daemon": d_paths["serve daemon"][0],
+        "aggsum": d_paths["aggsum"][0]}, errs)
     ntt_rows, ntt_big = timed("ntt record", ntt_record, dev, {
         "ckks main": ntt_counts, "gc workloads": pir_counts,
-        "workers": w_ntt, "fleet": f_ntt, "streaming": s_ntt}, ntt_errs)
+        "workers": w_ntt, "fleet": f_ntt, "streaming": s_ntt,
+        "serve daemon": d_paths["serve daemon"][1]}, ntt_errs)
     attn_row, attn_timing = timed("attn record", attn_record, dev,
                                   attn_counts, attn_err)
     profiled = timed("profile", phase_profile, dev)
@@ -4101,6 +4586,7 @@ def main() -> None:
         "serve_profile": serve_profiled, "baselines": baselines,
         "gc_workloads": gc_workloads, "workers": workers, "fleet": fleet,
         "streaming": streaming, "shamir": shamir,
+        "serve_daemon": daemon, "aggregate": aggregate,
         "bench": {**{k: v for k, v in bench.items() if k != "rows"},
                   "rows": [[r["workload"], r["n"], r["unbounded_s"],
                             r["os_s"], r["mage_s"]] for r in bench["rows"]]},

@@ -18,7 +18,15 @@
     python -m repro_torch exec --workload shamir_stats -n 2048 --workers 3 \\
         --budget 0.5 --exec-backend overlap --check [--device cpu]
     python -m repro_torch bench [--tiny] [--cases merge=16384,rsum=256] \\
-        [--streaming] [--sweep] [--json rows.json] [--device cpu]
+        [--streaming] [--sweep] [--json rows.json] [--cache DIR] \\
+        [--device cpu]
+    python -m repro_torch agg --clients 2000 --rounds 3 --check \\
+        [--rank K --peers h0:p0,...] [--drop R:c1,c2] [--json o.json] \\
+        [--device cpu]
+    python -m repro_torch serve --cache DIR --socket /tmp/mage.sock \\
+        [--device cpu]
+    python -m repro_torch submit --connect /tmp/mage.sock --workload merge \\
+        -n 4096 --budget 0.4 [--execute --check] [--status] [--shutdown]
 
 ``plan`` traces and plans a job and saves it: ``workerK.memory.bc``
 program files (an unbounded job's traced programs) and a ``job.json``
@@ -45,6 +53,19 @@ timing simulator, as the JAX package's ``bench`` does, and asserts that
 MAGE beats OS swapping on every case (not with ``--tiny`` or
 ``--no-check``); its seconds are outputs of the cost and storage models,
 the same on every host, and only the planning columns are measured.
+
+``--cache DIR`` (``plan``, ``exec``, ``bench``) serves repeated job
+shapes from an artifact cache: traced programs, plans and schedules,
+validated on every hit (the JAX package's entries hit too).  ``agg``
+runs secure aggregation: many input-only clients, over a few gateway
+endpoints, stream additive shares to a small compute fleet whose share
+matrices and sums live on the card (``--rank K --peers ...``: one rank a
+process over TCP); ``--check`` holds every round to the oracle (exit 1
+if it differs).  ``serve`` runs the multi-tenant plan-cache daemon (its
+jobs on the card) and ``submit`` sends it jobs, ``--status`` or
+``--shutdown`` (exit 3 when admission rejects the job, 1 on another
+error), with the reference's line-delimited JSON protocol and
+envelopes.
 
 The knobs are the JAX package's: ``--mode`` (memory; streaming, the
 same plan made out of core and run from its files; or unbounded: the
@@ -79,6 +100,7 @@ from .api import (SCHEMA_VERSION, JobSpec, Session, SpecMismatchError,
                   check_outputs, driver_parties, load_manifest, oracle_extra)
 from .core.transport import (FabricSpec, TransportError, aggregate_links,
                              pick_free_ports)
+from .kernels import kernel_counts
 from .kernels.garble import ops as gc_ops
 from .kernels.ntt import ops as ntt_ops
 from .protocols.ckks.driver import homomorphic_ops
@@ -121,19 +143,16 @@ def _links(stats) -> dict:
 
 def cmd_plan(args) -> int:
     spec = _spec_from_args(args, default_mode="streaming")
-    with Session(spec, device=args.device) as s:
+    with Session(spec, device=args.device, cache=args.cache) as s:
         manifest = s.save_plan(args.out)
         for i, prog in enumerate(s.plan()):
             print(f"worker{i}: {len(prog)} instructions ({prog.phase}) -> "
                   f"{os.path.join(args.out, f'worker{i}.memory.bc')}")
+        if s.cache_events:
+            print(f"cache: {s.cache_events}")
         print(f"spec hash {s.spec.plan_hash(s.workload)} "
               f"({s.spec.plan_mode}); manifest: {manifest}")
     return 0
-
-
-def _pairs(d: dict) -> list:
-    """A counter with int or tuple keys as JSON: [[key, count], ...]."""
-    return [[k, v] for k, v in d.items()]
 
 
 def _rank_report(s: Session) -> dict:
@@ -141,24 +160,12 @@ def _rank_report(s: Session) -> dict:
     gates and table digests, its peak device memory, and the kernels'
     counters of this process, set to 0 just before the run (every rank
     must show its AND gates and NTTs through the kernels)."""
-    gc = gc_ops.counts()
-    ntt = ntt_ops.counts()
     return {"hosted": s.hosted, "device": str(s.device),
             "driver": s.driver_name, "timings": s.timings,
             "and_gates": [g.ands for g in s.gate_counts],
             "table_digests": {f"{a}->{b}": d
                               for (a, b), d in s.table_digests.items()},
-            "kernel_counts": {
-                "gc": {**{k: gc[k] for k in ("garble_launches",
-                                             "eval_launches", "garble_ands",
-                                             "eval_ands")},
-                       "launch_sizes": {k: _pairs(v) for k, v in
-                                        gc["launch_sizes"].items()}},
-                "ntt": {**{k: ntt[k] for k in ("launches", "rows",
-                                               "plain_calls")},
-                        "launch_sizes": {k: _pairs(v) for k, v in
-                                         ntt["launch_sizes"].items()},
-                        "mul_shapes": _pairs(ntt["mul_shapes"])}},
+            "kernel_counts": kernel_counts(),
             "links": _links(s.transport_stats),
             "max_memory_allocated": (torch.cuda.max_memory_allocated(s.device)
                                      if s.device.type == "cuda" else None)}
@@ -359,10 +366,11 @@ def cmd_exec(args) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    with Session(spec, device=args.device) as s:
+    with Session(spec, device=args.device, cache=args.cache) as s:
         out = s.execute(real=args.real, check=args.check)
     summary = {
         "device": str(s.device),
+        "cache": s.cache_events,
         "spec": {"workload": s.spec.workload, "n": s.spec.n,
                  "plan_mode": s.spec.plan_mode,
                  "memory_budget": s.spec.memory_budget,
@@ -421,7 +429,8 @@ def cmd_bench(args) -> int:
         lookaheads = tuple(int(x) for x in args.lookaheads.split(",")) \
             if args.lookaheads else SWEEP_LOOKAHEADS
         rows = run_sweep(cases=cases, budgets=budgets,
-                         lookaheads=lookaheads, device=args.device)
+                         lookaheads=lookaheads, device=args.device,
+                         cache_dir=args.cache)
         if args.json:
             with open(args.json, "w") as f:
                 json.dump({"schema_version": SCHEMA_VERSION,
@@ -436,12 +445,135 @@ def cmd_bench(args) -> int:
         streaming_case = TINY_STREAMING_CASE if args.tiny else STREAMING_CASE
     rows = run_bench(cases=cases, budget_frac=args.budget_frac,
                      check=not args.no_check and not args.tiny,
-                     streaming_case=streaming_case, device=args.device)
+                     streaming_case=streaming_case, device=args.device,
+                     cache_dir=args.cache)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"schema_version": SCHEMA_VERSION, "rows": rows},
                       f, indent=2)
         print(f"wrote {args.json}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# agg: secure aggregation; serve / submit: the plan-cache daemon
+# ---------------------------------------------------------------------------
+
+
+def _parse_drop(items) -> list[tuple[int, int]]:
+    """``--drop R:c1,c2`` -> [(R, c1), (R, c2)] straggler pairs."""
+    out: list[tuple[int, int]] = []
+    for item in items or ():
+        rnd, sep, rest = item.partition(":")
+        if not sep or not rnd.isdigit():
+            raise SystemExit(f"error: bad --drop entry {item!r} "
+                             f"(want ROUND:client,client,...)")
+        for c in rest.split(","):
+            if not c.isdigit():
+                raise SystemExit(f"error: bad --drop client {c!r} in "
+                                 f"{item!r}")
+            out.append((int(rnd), int(c)))
+    return out
+
+
+def cmd_agg(args) -> int:
+    """Secure aggregation: N input-only clients -> a small compute fleet."""
+    from .aggregate import AggSpec, run_aggregation, verify_aggregates
+    spec = AggSpec(clients=args.clients, vec_len=args.vec_len,
+                   rounds=args.rounds, servers=args.servers,
+                   gateways=args.gateways, seed=args.seed,
+                   max_inflight_msgs=args.max_inflight_msgs,
+                   max_inflight_bytes=args.max_inflight_bytes,
+                   round_timeout_s=args.round_timeout)
+    transport = args.transport
+    if args.rank is not None:
+        if not args.peers:
+            raise SystemExit("error: --rank needs --peers host:port,... "
+                             "(one address per fabric rank: servers then "
+                             "gateways)")
+        transport = transport or "tcp"
+        fabric = FabricSpec(rank=args.rank,
+                            peers=tuple(args.peers.split(",")),
+                            latency_s=args.latency,
+                            bandwidth=args.bandwidth)
+    else:
+        transport = transport or "inproc"
+        fabric = FabricSpec(latency_s=args.latency,
+                            bandwidth=args.bandwidth)
+    cache = None
+    if args.cache:
+        from .serve_daemon.cache import ArtifactCache
+        cache = ArtifactCache(args.cache)
+    res = run_aggregation(spec, transport=transport, fabric_spec=fabric,
+                          cache=cache, drop=_parse_drop(args.drop),
+                          device=args.device)
+    for r in res.rounds:
+        head = ", ".join(str(int(v)) for v in r.total[:4])
+        note = (f" DEGRADED ({spec.clients - len(r.survivors)} dropped)"
+                if r.degraded else "")
+        print(f"round {r.rnd}: {len(r.survivors)}/{spec.clients} clients, "
+              f"aggregate [{head}{', ...' if len(r.total) > 4 else ''}]"
+              f"{note}")
+    if res.rounds:
+        print(f"{res.clients_per_s:.0f} clients/s over {res.seconds:.3f}s "
+              f"on {res.device}; plan events: {res.plan_events}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"schema_version": SCHEMA_VERSION, **res.to_doc()}, f)
+        print(f"wrote {args.json}")
+    if args.check and res.rounds:
+        try:
+            verify_aggregates(res)
+        except AssertionError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        print("aggregate check OK")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from .serve_daemon.server import ServeDaemon
+    d = ServeDaemon(args.cache, socket_path=args.socket,
+                    host=args.host, port=args.port,
+                    frame_pool=args.frame_pool,
+                    memory_bytes=args.memory_bytes,
+                    cache_bytes=args.cache_bytes,
+                    max_queue=args.max_queue, device=args.device)
+    addr = d.address if isinstance(d.address, str) \
+        else f"{d.address[0]}:{d.address[1]}"
+    print(f"serving on {addr} (cache: {d.cache.root}, "
+          f"frame pool: {d.admission.frame_pool}, device: {d.device})",
+          flush=True)
+    try:
+        d.serve_forever()
+    except KeyboardInterrupt:
+        d.shutdown()
+    return 0
+
+
+def cmd_submit(args) -> int:
+    from .serve_daemon.client import ServeError, serve_client
+    with serve_client(args.connect, timeout=args.timeout) as c:
+        if args.status:
+            resp = c.status()
+        elif args.shutdown:
+            resp = c.shutdown()
+        else:
+            spec = _spec_from_args(args, default_mode="streaming")
+            try:
+                resp = c.submit(spec, execute=args.execute,
+                                check=args.check,
+                                queue=not args.no_queue,
+                                timeout=args.timeout,
+                                use_cache=not args.no_cache)
+            except ServeError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 3 if e.rejected else 1
+    text = json.dumps(resp, indent=2)
+    print(text)
+    if args.json:
+        with open(args.json, "w") as f:
+            f.write(text)
     return 0
 
 
@@ -487,6 +619,12 @@ def _add_spec_args(p: argparse.ArgumentParser) -> None:
                    help="CKKS multiplicative depth (default: the workload's)")
 
 
+def _add_cache_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--cache", metavar="DIR", default=None,
+                   help="artifact-cache root: reuse traced programs, plans "
+                   "and schedules across invocations")
+
+
 def _add_device_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu (plain PyTorch versions)")
@@ -499,6 +637,7 @@ def main(argv: list[str] | None = None) -> int:
     p = sub.add_parser("plan", help="trace and plan a job; save it to a "
                        "directory")
     _add_spec_args(p)
+    _add_cache_arg(p)
     _add_device_arg(p)
     p.add_argument("--out", required=True, help="output directory")
     p.set_defaults(fn=cmd_plan)
@@ -564,6 +703,7 @@ def main(argv: list[str] | None = None) -> int:
                    "plaintext oracle; CKKS needs no flag)")
     p.add_argument("--check", action="store_true",
                    help="compare outputs with the workload's oracle")
+    _add_cache_arg(p)
     _add_device_arg(p)
     p.add_argument("--json", default=None, help="also write the summary here")
     p.set_defaults(fn=cmd_exec)
@@ -588,8 +728,95 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--no-check", action="store_true")
     p.add_argument("--json", metavar="PATH",
                    help="write the rows as JSON")
+    _add_cache_arg(p)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("agg", help="secure aggregation: many input-only "
+                       "clients stream additive shares to a compute fleet")
+    p.add_argument("--clients", type=int, required=True,
+                   help="number of simulated input-only clients")
+    p.add_argument("--rounds", type=int, default=1)
+    p.add_argument("--vec-len", type=int, default=64,
+                   help="per-client uint64 vector length")
+    p.add_argument("--servers", type=int, default=2,
+                   help="compute-fleet size (fabric ranks [0, S))")
+    p.add_argument("--gateways", type=int, default=2,
+                   help="client-side fabric endpoints (ranks [S, S+G))")
+    p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--transport", default=None,
+                   choices=("inproc", "tcp", "shaped", "shaped+tcp"),
+                   help="transport backend (default: inproc; --rank "
+                   "defaults to tcp)")
+    p.add_argument("--rank", type=int, default=None, metavar="K",
+                   help="distributed mode: host ONLY fabric rank K against "
+                   "--peers")
+    p.add_argument("--peers", default=None,
+                   help="comma list of host:port, one per fabric rank")
+    p.add_argument("--latency", type=float, default=0.0,
+                   help="shaped: per-link one-way latency (s)")
+    p.add_argument("--bandwidth", type=float, default=None,
+                   help="shaped: per-link bandwidth (bytes/s)")
+    p.add_argument("--max-inflight-msgs", type=int, default=0,
+                   help="per-link reorder-buffer message bound (0 = off)")
+    p.add_argument("--max-inflight-bytes", type=int, default=1 << 20,
+                   help="per-link reorder-buffer byte bound (backpressure)")
+    p.add_argument("--round-timeout", type=float, default=30.0,
+                   help="straggler timeout per round (s); late clients "
+                   "degrade the round to the surviving subset")
+    p.add_argument("--drop", action="append", metavar="R:c1,c2",
+                   help="simulate stragglers: these clients never send in "
+                   "round R (repeatable)")
+    _add_cache_arg(p)
+    p.add_argument("--check", action="store_true",
+                   help="verify every revealed aggregate against the "
+                   "oracle over its surviving subset")
+    p.add_argument("--json", metavar="PATH",
+                   help="write the full result envelope as JSON")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_agg)
+
+    p = sub.add_parser("serve", help="run the multi-tenant plan-cache "
+                       "daemon")
+    p.add_argument("--cache", required=True, metavar="DIR",
+                   help="artifact-cache root the daemon owns")
+    p.add_argument("--socket", default=None, metavar="PATH",
+                   help="unix socket path to listen on (default: TCP)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=None,
+                   help="TCP port (default: OS-assigned, printed on start)")
+    p.add_argument("--frame-pool", type=int, default=1 << 16,
+                   help="shared frame budget across concurrent jobs")
+    p.add_argument("--memory-bytes", type=int, default=None,
+                   help="optional cap on summed per-job memory estimates")
+    p.add_argument("--cache-bytes", type=int, default=None,
+                   help="LRU-evict cache entries beyond this many bytes")
+    p.add_argument("--max-queue", type=int, default=64,
+                   help="max jobs waiting for admission before rejecting")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("submit", help="submit a job to a serve daemon")
+    p.add_argument("--connect", required=True, metavar="ADDR",
+                   help="daemon address: unix socket path or host:port")
+    _add_spec_args(p)
+    p.add_argument("--execute", action="store_true",
+                   help="also execute the planned job on the daemon")
+    p.add_argument("--check", action="store_true",
+                   help="with --execute: verify against the oracle")
+    p.add_argument("--no-queue", action="store_true",
+                   help="reject (exit 3) instead of waiting for admission")
+    p.add_argument("--no-cache", action="store_true",
+                   help="bypass the daemon's artifact cache (cold run)")
+    p.add_argument("--timeout", type=float, default=None,
+                   help="admission + socket timeout (s)")
+    p.add_argument("--status", action="store_true",
+                   help="just print the daemon's status JSON")
+    p.add_argument("--shutdown", action="store_true",
+                   help="ask the daemon to shut down")
+    p.add_argument("--json", metavar="PATH",
+                   help="also write the response JSON here")
+    p.set_defaults(fn=cmd_submit)
 
     args = ap.parse_args(argv)
     try:

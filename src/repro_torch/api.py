@@ -54,6 +54,17 @@ planning of the workers' programs).
 OS swapping, MAGE) over a planned job with the timing simulator
 (``core.simulator``): host work whose seconds are outputs of the cost and
 storage models, not times taken on any device.
+
+A memory program is a deterministic function of the spec, so a Session
+with an artifact cache (``Session(spec, cache=...)``: a
+``serve_daemon.ArtifactCache`` or a cache root) serves a repeated job
+shape from validated files on disk: the traced programs and their
+next-use sidecars by ``JobSpec.trace_hash`` (shared by every budget of
+one shape), the memory programs and the batch and overlap schedules by
+``JobSpec.plan_hash``.  ``cache_events`` says what each stage did.  The
+entries are the JAX package's, so either package hits the other's.
+``estimate_job_resources`` sizes a job (frames, bytes) for the serve
+daemon's admission controller.
 """
 
 from __future__ import annotations
@@ -71,10 +82,10 @@ import numpy as np
 import torch
 
 from .core.bytecode import (RECORD_BYTES, Program, ProgramFile,
-                            write_program)
+                            write_program, writer_like)
 from .core.engine import Engine, EngineStats, ProtocolDriver, swapped_pages
 from .core.liveness import working_set_pages_stream
-from .core.planner import PlanConfig, PlanReport
+from .core.planner import PlanConfig, PlanReport, plan_memory_estimate
 from .core.replacement import POLICIES
 from .core.simulator import (DeviceModel, SimResult, simulate_memory_program,
                              simulate_os_paging, simulate_unbounded)
@@ -133,6 +144,12 @@ JOB_FILE = "job.json"
 PLAN_HASH_FIELDS = ("workload", "n", "num_workers", "memory_budget",
                     "lookahead", "prefetch_pages", "policy", "swap_bypass",
                     "ckks_ring", "ckks_levels")
+#: the subset of PLAN_HASH_FIELDS that determines the traced bytecode (the
+#: JAX package's): a trace is a pure function of the workload's shape, so
+#: one cached trace and its next-use sidecar serve every budget, lookahead
+#: and policy of that shape (``JobSpec.trace_hash``)
+TRACE_HASH_FIELDS = ("workload", "n", "num_workers", "ckks_ring",
+                     "ckks_levels")
 #: JobSpec fields of the JAX package that leave its results as they are:
 #: which of two cores giving the same results plans and simulates, and the
 #: records a chunk its file stages take.  A manifest it wrote carries them,
@@ -227,8 +244,17 @@ class JobSpec:
     def plan_hash(self, workload: Workload | None = None) -> str:
         """Digest of the plan-determining fields (``PLAN_HASH_FIELDS``),
         canonicalized as the JAX package does, so both give one digest."""
+        return self._hash(PLAN_HASH_FIELDS, workload)
+
+    def trace_hash(self, workload: Workload | None = None) -> str:
+        """Digest of the trace-determining fields (``TRACE_HASH_FIELDS``),
+        the JAX package's digest."""
+        return self._hash(TRACE_HASH_FIELDS, workload)
+
+    def _hash(self, fields: tuple[str, ...],
+              workload: Workload | None) -> str:
         spec = self.normalized(workload)
-        payload = {k: getattr(spec, k) for k in PLAN_HASH_FIELDS}
+        payload = {k: getattr(spec, k) for k in fields}
         blob = json.dumps(payload, sort_keys=True, separators=(",", ":"))
         return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
@@ -460,17 +486,26 @@ class Session:
     program files somewhere durable."""
 
     def __init__(self, spec: JobSpec, device: str | torch.device | None = None,
-                 workload: Workload | None = None):
+                 workload: Workload | None = None, cache=None):
         if workload is not None and workload.name != spec.workload:
             raise ValueError(f"workload object {workload.name!r} does not "
                              f"match spec.workload {spec.workload!r}")
         self.device = resolve_device(device)
         self.workload = workload or get(spec.workload)
         self.spec = spec.normalized(self.workload)
-        self._progs: list[Program] | None = None
-        self._planned: list[Program] | None = None
+        self._progs: list[Program | ProgramFile] | None = None
+        self._planned: list[Program | ProgramFile] | None = None
         self._ws: dict[int, int] = {}
         self._tmpdir: str | None = None
+        self._cache = None
+        self._plan_probed = False
+        self._trace_anns: list[str] | None = None
+        #: what each stage of THIS session got from the cache: {"trace" |
+        #: "plan" | "batch" | "overlap": "hit" | "miss"}; a stage that did
+        #: not consult it is absent
+        self.cache_events: dict[str, str] = {}
+        if cache is not None:
+            self.set_cache(cache)
         self.configs: list[PlanConfig] = []
         self.plan_reports: list[PlanReport] = []
         self.hosted: list[int] = []
@@ -485,6 +520,29 @@ class Session:
         self.table_digest: str | None = None
         self.ckks_counts: dict[str, int] = {}
         self.op_counts: dict[str, int] = {}
+
+    def set_cache(self, cache) -> None:
+        """Attach an artifact cache (an ``ArtifactCache`` or a root path)."""
+        from .serve_daemon.cache import ArtifactCache
+        if not isinstance(cache, ArtifactCache):
+            cache = ArtifactCache(cache)
+        self._cache = cache
+
+    @property
+    def cache(self):
+        """The attached ArtifactCache, or None."""
+        return self._cache
+
+    def _usable_cache(self):
+        """The cache, unless the workload object is not the registry's: a
+        custom workload's trace is not a function of its name."""
+        if self._cache is None:
+            return None
+        try:
+            registered = get(self.spec.workload)
+        except KeyError:
+            return None
+        return self._cache if self.workload is registered else None
 
     def close(self) -> None:
         """Remove the temporary directory of a streaming plan, if any."""
@@ -516,16 +574,37 @@ class Session:
     def _extra(self) -> dict:
         return oracle_extra(self.workload, self.spec)
 
-    def trace(self) -> list[Program]:
+    def trace(self, cache_dir=None) -> list[Program | ProgramFile]:
         """Trace the workload's DSL program, one per worker (placement,
         §6.1); the spec's plan hash and the spec are stamped into every
-        program's ``meta``, so the plans made from them carry both."""
+        program's ``meta``, so the plans made from them carry both.
+
+        With a cache (``cache_dir`` here, or ``cache`` at construction), a
+        repeated trace shape is served as the cache's FREE-stripped
+        program files and next-use sidecars instead of running the DSL; a
+        fresh trace fills the cache, and the Session takes the cached
+        files, so cold and hot runs plan the same."""
+        if cache_dir is not None:
+            self.set_cache(cache_dir)
         if self._progs is None:
             t0 = time.perf_counter()
-            progs = self.workload.trace(self.spec.n, self.spec.num_workers,
-                                        **self._extra())
+            cache = self._usable_cache()
+            got = cache.get_trace(self.spec, self.workload) \
+                if cache is not None else None
+            if cache is not None:
+                self.cache_events["trace"] = "miss" if got is None else "hit"
+            if got is None:
+                progs = self.workload.trace(self.spec.n,
+                                            self.spec.num_workers,
+                                            **self._extra())
+                if cache is not None:
+                    got = cache.put_trace(self.spec, self.workload, progs)
+            if got is not None:
+                progs, self._trace_anns = list(got[0]), list(got[1])
             h = self.spec.plan_hash(self.workload)
             for prog in progs:
+                # a cached file's stamp is its trace hash; the Session's
+                # own identity is stamped in memory
                 prog.meta["spec_hash"] = h
                 prog.meta["job_spec"] = self.spec.to_dict()
             self._progs = progs
@@ -549,7 +628,7 @@ class Session:
             return self._tmpdir
         return None
 
-    def plan(self) -> list[Program | ProgramFile]:
+    def plan(self, cache_dir=None) -> list[Program | ProgramFile]:
         """Replacement + scheduling of each worker's program under the
         spec's budget, resolved against that worker's working set (§6.1),
         serially, in threads or in processes (``parallel_plan``); in
@@ -559,8 +638,17 @@ class Session:
         reports and no configs.  ``timings`` gains ``annotate_s`` (the
         streaming planner's next-use pass, summed over the workers) and,
         with ``track_plan_memory``, ``peak_mem_bytes`` (the largest
-        worker's)."""
+        worker's).
+
+        With a cache, a repeated plan shape is served from the cache's
+        validated memory-program files, with their configs and reports:
+        no trace and no planning (``cache_events["plan"] == "hit"``); a
+        fresh plan is put in the cache."""
+        if cache_dir is not None:
+            self.set_cache(cache_dir)
         if self._planned is None:
+            if self.spec.plan_mode != "unbounded" and self.plan_if_cached():
+                return self._planned
             progs = self.trace()
             if self.spec.plan_mode == "unbounded":
                 self._planned = list(progs)
@@ -571,18 +659,52 @@ class Session:
                                                 self.working_set(w))
                             for w in range(len(progs))]
             streaming = self.spec.plan_mode == "streaming"
+            if not streaming:
+                # the in-memory planner takes Programs; a cached trace is
+                # files (small, by definition of the in-memory mode)
+                progs = [p.read_program() if isinstance(p, ProgramFile)
+                         else p for p in progs]
             self._planned, self.plan_reports = plan_workers(
                 progs, self.configs, parallel=self.spec.parallel_plan,
                 streaming=streaming,
                 workdir=self._workdir() if streaming else None,
-                track_memory=self.spec.track_plan_memory)
+                track_memory=self.spec.track_plan_memory,
+                annotations=self._trace_anns if streaming else None)
             self.timings["plan_s"] = time.perf_counter() - t0
             self.timings["annotate_s"] = sum(r.annotate_s
                                              for r in self.plan_reports)
             if self.spec.track_plan_memory:
                 self.timings["peak_mem_bytes"] = max(
                     r.peak_mem_bytes for r in self.plan_reports)
+            cache = self._usable_cache()
+            if cache is not None:
+                cache.put_plan(self.spec, self.workload, self._planned,
+                               self.configs, self.plan_reports)
         return self._planned
+
+    def plan_if_cached(self) -> bool:
+        """Probe the cache for this spec's plan (once a Session); on a hit
+        take its memory programs, configs and reports and return True.
+        The serve daemon sizes admission with it, without planning."""
+        if self._planned is not None:
+            return True
+        cache = self._usable_cache()
+        if cache is None or self.spec.plan_mode == "unbounded" or \
+                self._plan_probed:
+            return False
+        self._plan_probed = True
+        t0 = time.perf_counter()
+        got = cache.get_plan(self.spec, self.workload)
+        if got is None:
+            self.cache_events["plan"] = "miss"
+            return False
+        self.cache_events["plan"] = "hit"
+        planned, cfgs, reports = got
+        self._planned = list(planned)
+        self.configs = list(cfgs)
+        self.plan_reports = list(reports)
+        self.timings["plan_s"] = time.perf_counter() - t0
+        return True
 
     def adopt_plan(self, programs: list[Program | ProgramFile]) -> None:
         """Execute these programs, one per worker, instead of planning
@@ -611,15 +733,23 @@ class Session:
         h = self.spec.plan_hash(self.workload)
         names = []
         planned = self.plan()
+        cached = self.cache_events.get("plan") == "hit" or (
+            self.spec.plan_mode == "unbounded"
+            and self.cache_events.get("trace") is not None)
         for i, prog in enumerate(planned):
             name = f"worker{i}.memory.bc"
             dst = os.path.join(outdir, name)
             if isinstance(prog, ProgramFile):
                 if os.path.abspath(prog.path) != os.path.abspath(dst):
-                    shutil.move(prog.path, dst)
-                    srcdir = os.path.dirname(prog.path)
-                    if not os.listdir(srcdir):
-                        os.rmdir(srcdir)
+                    if cached:
+                        # a cache's files stay in the cache; the copy
+                        # gets this spec's stamp
+                        _restamp(prog, dst, h, self.spec.to_dict())
+                    else:
+                        shutil.move(prog.path, dst)
+                        srcdir = os.path.dirname(prog.path)
+                        if not os.listdir(srcdir):
+                            os.rmdir(srcdir)
                 planned[i] = ProgramFile(dst)
             else:
                 prog.meta["spec_hash"] = h
@@ -759,10 +889,10 @@ class Session:
         scheds = oscheds = None
         t0 = time.perf_counter()
         if self.spec.exec_backend == "batched":
-            scheds = [build_batch_schedule(prog) for prog in planned]
+            scheds = self._schedules("batch", planned)
             self.timings["batch_schedule_s"] = time.perf_counter() - t0
         elif self.spec.exec_backend == "overlap":
-            oscheds = [build_overlap_schedule(prog) for prog in planned]
+            oscheds = self._schedules("overlap", planned)
             self.timings["overlap_schedule_s"] = time.perf_counter() - t0
         try:
             t0 = time.perf_counter()
@@ -785,6 +915,29 @@ class Session:
             check_outputs(self.workload, self.spec.n, outputs,
                           **self._extra())
         return outputs
+
+    def _schedules(self, kind: str, planned: list) -> list:
+        """One batch (``kind="batch"``) or overlap schedule a worker's
+        program, from the cache when it has them (keyed by the plan hash,
+        like the plan they describe).  An unbounded job builds its own:
+        ``plan_mode`` is not in the plan hash, and an unbounded "plan" is
+        the trace, so its schedules would collide with the memory-mode
+        entry of the same spec."""
+        build = build_batch_schedule if kind == "batch" \
+            else build_overlap_schedule
+        cache = self._usable_cache()
+        if cache is None or self.spec.plan_mode == "unbounded":
+            return [build(prog) for prog in planned]
+        get, put = (cache.get_batch, cache.put_batch) if kind == "batch" \
+            else (cache.get_overlap, cache.put_overlap)
+        got = get(self.spec, self.workload)
+        if got is not None and len(got) == len(planned):
+            self.cache_events[kind] = "hit"
+            return got
+        self.cache_events[kind] = "miss"
+        scheds = [build(prog) for prog in planned]
+        put(self.spec, self.workload, scheds)
+        return scheds
 
     def _run(self, planned: list[Program | ProgramFile], ddef: DriverDef,
              fx: Fabric,
@@ -860,6 +1013,63 @@ class Session:
                 for op, v in d.op_counts.items():
                     self.op_counts[op.name] = \
                         self.op_counts.get(op.name, 0) + v
+
+
+def run_job(spec: JobSpec, real: bool | None = True, check: bool = False,
+            cache=None, device: str | torch.device | None = None
+            ) -> dict[int, np.ndarray]:
+    """One shot: trace, plan, execute (through ``cache`` when given), clean
+    up; returns the outputs."""
+    with Session(spec, device=device, cache=cache) as s:
+        return s.execute(real=real, check=check)
+
+
+def plan(spec: JobSpec, outdir: str | os.PathLike, cache=None,
+         device: str | torch.device | None = None) -> str:
+    """One shot: trace and plan ``spec`` (through ``cache`` when given) and
+    save the plan to ``outdir`` (``python -m repro_torch plan``); returns
+    the manifest's path."""
+    with Session(spec, device=device, cache=cache) as s:
+        return s.save_plan(outdir)
+
+
+def estimate_job_resources(sess: Session) -> tuple[int, int]:
+    """(frames, bytes) one job pins while it plans and runs: what the
+    serve daemon's admission controller charges (the JAX package's model).
+
+    Frames are the paper's T summed over the workers: from a cached
+    plan's configs when there is one (no trace), from an integer budget
+    by arithmetic, else from the traced working sets.  An unbounded job
+    keeps its whole working set resident.  Bytes are the engine's frames
+    (frames x page bytes x parties, in device memory) plus the planner's
+    O(frames) peak estimate when the job will plan."""
+    spec = sess.spec
+    workers = range(spec.num_workers)
+    cfgs: list[PlanConfig] = []
+    if spec.plan_mode == "unbounded":
+        frames = sum(sess.working_set(i) for i in workers)
+    elif sess.plan_if_cached():
+        frames = sum(c.num_frames for c in sess.configs)
+    else:
+        # an integer budget needs no working set, so no trace
+        fraction = isinstance(spec.memory_budget, float)
+        cfgs = [resolve_plan_config(
+            spec, sess.working_set(i) if fraction else 0) for i in workers]
+        frames = sum(c.num_frames for c in cfgs)
+    page_bytes = (1 << sess.workload.page_shift) * SLOT_BYTES[sess.protocol]
+    parties = driver_parties(spec.driver) if spec.driver in DRIVERS else 1
+    planner_bytes = sum(plan_memory_estimate(c) for c in cfgs)
+    return frames, frames * page_bytes * parties + planner_bytes
+
+
+def _restamp(prog: ProgramFile, dst: str, spec_hash: str,
+             job_spec: dict) -> None:
+    """Copy a cache-resident program file to ``dst`` with this spec's
+    stamp in its header (a cached trace is stamped with its trace hash)."""
+    meta = {**prog.meta, "spec_hash": spec_hash, "job_spec": job_spec}
+    with writer_like(prog, dst, meta=meta) as w:
+        for _, rec in prog.iter_chunks():
+            w.append_records(rec)
 
 
 def _sum_counts(counts) -> GateCounts:

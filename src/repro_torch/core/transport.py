@@ -80,6 +80,19 @@ class LinkStats:
     bytes: int = 0
 
 
+@dataclasses.dataclass
+class ReorderStats:
+    """One link's reorder-buffer occupancy (receive side): what is pending
+    now, the high-water marks since the link was made, and its bounds (0:
+    none)."""
+    pending_msgs: int = 0
+    pending_bytes: int = 0
+    peak_msgs: int = 0
+    peak_bytes: int = 0
+    max_msgs: int = 0
+    max_bytes: int = 0
+
+
 def nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -157,15 +170,20 @@ def _sleep(baton: Baton, seconds: float) -> None:
 class _Link:
     """One (src, dst) lane: a locked per-tag reorder buffer, bounded by
     ``max_msgs`` pending messages and ``max_bytes`` pending bytes.  A
-    blocked ``put`` or ``get`` gives up the ``baton`` while it waits if
-    the calling thread holds it, and takes it back once it has left the
-    link's lock."""
+    ``put`` waits only while the link is already at a bound, so one more
+    message always passes: the pending bytes stay under ``max_bytes`` plus
+    the largest message the link carries.  ``peak_msgs`` and
+    ``peak_bytes`` are the high-water marks.  A blocked ``put`` or ``get``
+    gives up the ``baton`` while it waits if the calling thread holds it,
+    and takes it back once it has left the link's lock."""
 
     def __init__(self, baton: Baton, max_msgs: int = 0, max_bytes: int = 0):
         self._cond = threading.Condition()
         self._by_tag: dict[int, deque] = {}
         self._pending = 0
         self._pending_bytes = 0
+        self.peak_msgs = 0            # high-water marks: what shows that the
+        self.peak_bytes = 0           # bounds held the pending set
         self._baton = baton
         self.max_msgs = max_msgs
         self.max_bytes = max_bytes
@@ -195,10 +213,26 @@ class _Link:
                 self._by_tag.setdefault(tag, deque()).append(data)
                 self._pending += 1
                 self._pending_bytes += nbytes(data)
+                self.peak_msgs = max(self.peak_msgs, self._pending)
+                self.peak_bytes = max(self.peak_bytes, self._pending_bytes)
                 self._cond.notify_all()
         finally:
             if released:
                 self._baton.acquire()
+
+    def set_bounds(self, max_msgs: int, max_bytes: int | None) -> None:
+        """Bound the pending set; ``max_bytes=None`` keeps the byte bound."""
+        with self._cond:
+            self.max_msgs = max_msgs
+            if max_bytes is not None:
+                self.max_bytes = max_bytes
+            self._cond.notify_all()
+
+    def reorder_stats(self) -> ReorderStats:
+        with self._cond:
+            return ReorderStats(self._pending, self._pending_bytes,
+                                self.peak_msgs, self.peak_bytes,
+                                self.max_msgs, self.max_bytes)
 
     def get(self, tag: int, timeout: float | None = None) -> torch.Tensor:
         deadline = None if timeout is None else time.monotonic() + timeout
@@ -317,10 +351,17 @@ class Transport:
         ``out``, the payload is also copied into it (reshaped)."""
         raise NotImplementedError
 
-    def set_depth(self, src: int, dst: int, max_msgs: int = 0) -> None:
-        """Bound one link's pending messages (its producer blocks when
-        full)."""
+    def set_depth(self, src: int, dst: int, max_msgs: int = 0,
+                  max_bytes: int | None = None) -> None:
+        """Bound one link's pending messages and, unless ``max_bytes`` is
+        None, its pending bytes (its producer blocks when full)."""
         raise NotImplementedError
+
+    def reorder_stats(self) -> dict[tuple[int, int], ReorderStats]:
+        """Receive-side reorder-buffer occupancy per (src, dst) link this
+        transport holds: pending now, the high-water marks and the bounds.
+        This is how a caller checks that the depth bounds held."""
+        return {}
 
     def send_async(self, src: int, dst: int, tag: int, data: torch.Tensor,
                    copy: bool = True) -> Completion:
@@ -407,8 +448,14 @@ class InprocTransport(Transport):
 
     _check_recv = _link
 
-    def set_depth(self, src: int, dst: int, max_msgs: int = 0) -> None:
-        self._link(src, dst).max_msgs = max_msgs
+    def set_depth(self, src: int, dst: int, max_msgs: int = 0,
+                  max_bytes: int | None = None) -> None:
+        self._link(src, dst).set_bounds(max_msgs, max_bytes)
+
+    def reorder_stats(self) -> dict[tuple[int, int], ReorderStats]:
+        with self._lock:
+            links = list(self._links.items())
+        return {k: link.reorder_stats() for k, link in links}
 
     def send(self, src: int, dst: int, tag: int, data: torch.Tensor,
              copy: bool = True) -> None:
@@ -756,12 +803,19 @@ class TcpTransport(Transport):
             return out
         return data.to(self.device)
 
-    def set_depth(self, src: int, dst: int, max_msgs: int = 0) -> None:
-        """Bound one inbound link's pending messages (its byte bound,
-        ``max_link_bytes``, stays).  The reader blocks in ``put`` when a
-        bound is hit, which stops draining the socket and pushes back to
-        the sender through TCP flow control."""
-        self._link(src, dst).max_msgs = max_msgs
+    def set_depth(self, src: int, dst: int, max_msgs: int = 0,
+                  max_bytes: int | None = None) -> None:
+        """Bound one inbound link's pending messages and, unless
+        ``max_bytes`` is None (then ``max_link_bytes`` stays), its pending
+        bytes.  The reader blocks in ``put`` when a bound is hit, which
+        stops draining the socket and pushes back to the sender through
+        TCP flow control."""
+        self._link(src, dst).set_bounds(max_msgs, max_bytes)
+
+    def reorder_stats(self) -> dict[tuple[int, int], ReorderStats]:
+        with self._links_lock:
+            links = list(self._links.items())
+        return {k: link.reorder_stats() for k, link in links}
 
     def close(self) -> None:
         self._closed = True
@@ -858,8 +912,12 @@ class ShapedTransport(Transport):
     def _check_recv(self, src: int, dst: int) -> None:
         self.inner._check_recv(src, dst)
 
-    def set_depth(self, src: int, dst: int, max_msgs: int = 0) -> None:
-        self.inner.set_depth(src, dst, max_msgs)
+    def set_depth(self, src: int, dst: int, max_msgs: int = 0,
+                  max_bytes: int | None = None) -> None:
+        self.inner.set_depth(src, dst, max_msgs, max_bytes)
+
+    def reorder_stats(self) -> dict[tuple[int, int], ReorderStats]:
+        return self.inner.reorder_stats()
 
     def listen(self) -> None:
         if hasattr(self.inner, "listen"):
@@ -1033,6 +1091,15 @@ class Fabric:
 
     def link_totals(self) -> dict[tuple[int, int], LinkStats]:
         return aggregate_links(self.stats())
+
+    def reorder_stats(self) -> dict[tuple[int, int], ReorderStats]:
+        """Receive-side reorder occupancy merged over the hosted endpoints
+        (a link's buffer lives at its receiving endpoint, so two hosted
+        transports never report one key)."""
+        out: dict[tuple[int, int], ReorderStats] = {}
+        for t in self._unique():
+            out.update(t.reorder_stats())
+        return out
 
     def barrier(self) -> None:
         """Full-fabric barrier: each hosted rank exchanges a token with

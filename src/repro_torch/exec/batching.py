@@ -30,6 +30,7 @@ any window where it does not hold.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -51,6 +52,9 @@ _BARRIER_OPS = frozenset(int(o) for o in DIRECTIVES) | {
 #: below this window size, a failed span-exactness check falls back to
 #: scalar order instead of bisecting further
 _MIN_SPLIT = 32
+
+#: the saved schedule's format (the JAX package's): an npz of int64 arrays
+SCHEDULE_VERSION = 1
 
 
 @dataclasses.dataclass
@@ -105,6 +109,33 @@ class BatchSchedule:
             "max_batch": int(sizes[batchable].max()) if batchable.any()
             else 0,
         }
+
+    def save(self, path: str | os.PathLike) -> None:
+        """Write the schedule as the JAX package's npz sidecar (the same
+        keys, every array int64), so either package loads the other's."""
+        with open(path, "wb") as f:
+            np.savez(f,
+                     version=np.array([SCHEDULE_VERSION], dtype=np.int64),
+                     chunk_instrs=np.array([self.chunk_instrs],
+                                           dtype=np.int64),
+                     n_records=np.array([self.n_records], dtype=np.int64),
+                     order=self.order.astype(np.int64),
+                     bounds=self.bounds.astype(np.int64),
+                     group_op=self.group_op.astype(np.int64),
+                     chunk_groups=self.chunk_groups.astype(np.int64))
+
+    @classmethod
+    def load(cls, path: str | os.PathLike) -> "BatchSchedule":
+        with np.load(path) as z:
+            ver = int(z["version"][0])
+            if ver != SCHEDULE_VERSION:
+                raise ValueError(
+                    f"batch schedule version {ver} != {SCHEDULE_VERSION}")
+            return cls(chunk_instrs=int(z["chunk_instrs"][0]),
+                       n_records=int(z["n_records"][0]),
+                       order=z["order"], bounds=z["bounds"],
+                       group_op=z["group_op"],
+                       chunk_groups=z["chunk_groups"])
 
     def validate_for(self, prog: Program | ProgramFile) -> None:
         n = len(prog)

@@ -40,6 +40,7 @@ back to scalar program order where it does not hold.
 from __future__ import annotations
 
 import dataclasses
+import os
 from heapq import heapify, heappop, heappush
 
 import numpy as np
@@ -48,6 +49,9 @@ from ..core.bytecode import (DEFAULT_CHUNK_INSTRS, DIRECTIVES, _IMM_OFF,
                              _IN_OFF, _OUT_OFF, Op, Program, ProgramFile,
                              iter_record_chunks, unpack_heads)
 from .batching import _window_groups
+
+#: the saved schedule's format (the JAX package's): an npz of int64 arrays
+OVERLAP_VERSION = 1
 
 #: group kinds (``OverlapSchedule.group_kind``)
 K_LOCAL = 0      #: compute/directive rows; batched when group_op >= 0
@@ -122,6 +126,34 @@ class OverlapSchedule:
             "batchable_instructions": int(sizes[batch].sum()),
             "scalar_instructions": int(sizes[local & ~batch].sum()),
         }
+
+    def save(self, path: str | os.PathLike) -> None:
+        """Write the schedule as the JAX package's npz sidecar (the same
+        keys, every array int64), so either package loads the other's."""
+        with open(path, "wb") as f:
+            np.savez(f,
+                     version=np.array([OVERLAP_VERSION], dtype=np.int64),
+                     chunk_instrs=np.array([self.chunk_instrs],
+                                           dtype=np.int64),
+                     n_records=np.array([self.n_records], dtype=np.int64),
+                     order=self.order.astype(np.int64),
+                     bounds=self.bounds.astype(np.int64),
+                     group_kind=self.group_kind.astype(np.int64),
+                     group_op=self.group_op.astype(np.int64),
+                     chunk_groups=self.chunk_groups.astype(np.int64))
+
+    @classmethod
+    def load(cls, path: str | os.PathLike) -> "OverlapSchedule":
+        with np.load(path) as z:
+            ver = int(z["version"][0])
+            if ver != OVERLAP_VERSION:
+                raise ValueError(
+                    f"overlap schedule version {ver} != {OVERLAP_VERSION}")
+            return cls(chunk_instrs=int(z["chunk_instrs"][0]),
+                       n_records=int(z["n_records"][0]),
+                       order=z["order"], bounds=z["bounds"],
+                       group_kind=z["group_kind"], group_op=z["group_op"],
+                       chunk_groups=z["chunk_groups"])
 
     def validate_for(self, prog: Program | ProgramFile) -> None:
         n = len(prog)

@@ -57,4 +57,28 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
-__all__ = ["resolve_device", "to_device"]
+def _pairs(d: dict) -> list:
+    """A counter with int or tuple keys as JSON: [[key, count], ...]."""
+    return [[k, v] for k, v in d.items()]
+
+
+def kernel_counts() -> dict:
+    """The half-gates and NTT wrappers' counters of this process as JSON
+    (launch sizes as [size, count] pairs): what a fleet rank reports and
+    the serve daemon's ``status`` carries."""
+    from .garble import ops as gc_ops
+    from .ntt import ops as ntt_ops
+    gc = gc_ops.counts()
+    ntt = ntt_ops.counts()
+    return {
+        "gc": {**{k: gc[k] for k in ("garble_launches", "eval_launches",
+                                     "garble_ands", "eval_ands")},
+               "launch_sizes": {k: _pairs(v) for k, v in
+                                gc["launch_sizes"].items()}},
+        "ntt": {**{k: ntt[k] for k in ("launches", "rows", "plain_calls")},
+                "launch_sizes": {k: _pairs(v) for k, v in
+                                 ntt["launch_sizes"].items()},
+                "mul_shapes": _pairs(ntt["mul_shapes"])}}
+
+
+__all__ = ["kernel_counts", "resolve_device", "to_device"]

@@ -8,12 +8,14 @@ tensor a wrapper launches its kernel on the current stream (no
 synchronisation; the outputs are two views of one allocation); on a CPU
 tensor it runs the plain version in ``ref.py``; on anything else it
 raises.  The counters count kernel launches only, so a run can show that
-its ANDs went through the kernels.  They are plain integers without a
-lock: a GC job's engines (every worker of both parties) take turns on
-the transport's baton, so one engine at a time counts.
+its ANDs went through the kernels.  A lock guards them: a GC job's
+engines take turns on their transport's baton, but the serve daemon runs
+several tenants' jobs, each with its own baton, in one process.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -27,6 +29,7 @@ eval_ands = 0            # AND gates evaluated by the kernel
 #: launches by gate count, per kind
 launch_sizes: dict[str, dict[int, int]] = {"garble": {}, "eval": {}}
 _garble_sizes, _eval_sizes = launch_sizes["garble"], launch_sizes["eval"]
+_lock = threading.Lock()
 
 _I64 = torch.int64
 _GID_END = 1 << 62
@@ -35,16 +38,19 @@ _U64_END = 1 << 64
 
 def reset_counts() -> None:
     global garble_launches, eval_launches, garble_ands, eval_ands
-    garble_launches = eval_launches = garble_ands = eval_ands = 0
-    _garble_sizes.clear()
-    _eval_sizes.clear()
+    with _lock:
+        garble_launches = eval_launches = garble_ands = eval_ands = 0
+        _garble_sizes.clear()
+        _eval_sizes.clear()
 
 
 def counts() -> dict:
-    return {"garble_launches": garble_launches,
-            "eval_launches": eval_launches,
-            "garble_ands": garble_ands, "eval_ands": eval_ands,
-            "launch_sizes": {k: dict(v) for k, v in launch_sizes.items()}}
+    with _lock:
+        return {"garble_launches": garble_launches,
+                "eval_launches": eval_launches,
+                "garble_ands": garble_ands, "eval_ands": eval_ands,
+                "launch_sizes": {k: dict(v)
+                                 for k, v in launch_sizes.items()}}
 
 
 def offset(r) -> tuple[int, int]:
@@ -119,9 +125,10 @@ def garble_and(a: torch.Tensor, b: torch.Tensor, r: tuple[int, int],
     if m:   # an empty batch launches nothing
         kernel.launch_garble(pa, pb, r_lo, r_hi, gid0, c.data_ptr(),
                              tab.data_ptr(), m, a.get_device())
-        garble_launches += 1
-        garble_ands += m
-        _garble_sizes[m] = _garble_sizes.get(m, 0) + 1
+        with _lock:
+            garble_launches += 1
+            garble_ands += m
+            _garble_sizes[m] = _garble_sizes.get(m, 0) + 1
     return c, tab
 
 
@@ -140,7 +147,8 @@ def eval_and(wa: torch.Tensor, wb: torch.Tensor, tab: torch.Tensor,
     if m:   # an empty batch launches nothing
         kernel.launch_eval(pa, pb, pt, gid0, c.data_ptr(), m,
                            wa.get_device())
-        eval_launches += 1
-        eval_ands += m
-        _eval_sizes[m] = _eval_sizes.get(m, 0) + 1
+        with _lock:
+            eval_launches += 1
+            eval_ands += m
+            _eval_sizes[m] = _eval_sizes.get(m, 0) + 1
     return c

@@ -187,12 +187,16 @@ def run_workload_workers(name: str, n: int, num_workers: int = 1,
                          budget_frac: float = 0.25,
                          plan_overrides: dict | None = None,
                          plan_mode: str = "memory",
-                         device: Device = None) -> list[ScenarioResult]:
-    """All three scenarios for every worker of one case (one Session)."""
+                         device: Device = None,
+                         cache_dir=None) -> list[ScenarioResult]:
+    """All three scenarios for every worker of one case (one Session).
+
+    ``cache_dir`` attaches the artifact cache: repeated bench invocations
+    of one case skip the trace (and, for a streaming case, the plan)."""
     spec = scenario_spec(name, n, budget_frac=budget_frac,
                          num_workers=num_workers,
                          plan_overrides=plan_overrides, plan_mode=plan_mode)
-    with Session(spec, device=device) as s:
+    with Session(spec, device=device, cache=cache_dir) as s:
         scenarios = s.simulate(cost_fn(s.protocol), model=STORAGE,
                                os_page_bytes=OS_PAGE_BYTES)
     out = []
@@ -220,13 +224,14 @@ def run_workload(name: str, n: int, budget_frac: float = 0.25,
                  num_workers: int = 1, worker: int = 0,
                  plan_overrides: dict | None = None,
                  plan_mode: str = "memory",
-                 device: Device = None) -> ScenarioResult:
+                 device: Device = None, cache_dir=None) -> ScenarioResult:
     """One worker's scenarios.  Note: plans and simulates ALL workers of
     the trace (one Session)."""
     return run_workload_workers(name, n, num_workers=num_workers,
                                 budget_frac=budget_frac,
                                 plan_overrides=plan_overrides,
-                                plan_mode=plan_mode, device=device)[worker]
+                                plan_mode=plan_mode, device=device,
+                                cache_dir=cache_dir)[worker]
 
 
 def fmt_row(name: str, r: ScenarioResult) -> str:
@@ -326,19 +331,23 @@ def _row(name: str, n: int, r: ScenarioResult, **extra) -> dict:
 
 
 def run_bench(cases=None, budget_frac: float = 0.4, check: bool = True,
-              streaming_case=None, device: Device = None) -> list[dict]:
+              streaming_case=None, device: Device = None,
+              cache_dir=None) -> list[dict]:
     """Drive the §8.2 scenarios; returns JSON-ready row dicts.  ``check``
-    asserts the paper's claim on every row: MAGE beats OS swapping."""
+    asserts the paper's claim on every row: MAGE beats OS swapping.
+    ``cache_dir``: the artifact cache every case's Session uses."""
     cases = cases if cases is not None else BENCH_CASES
     rows = []
     for name, n in cases:
-        r = run_workload(name, n, budget_frac=budget_frac, device=device)
+        r = run_workload(name, n, budget_frac=budget_frac, device=device,
+                         cache_dir=cache_dir)
         print("bench:", fmt_row(name, r), flush=True)
         rows.append(_row(name, n, r))
     if streaming_case is not None:
         name, n = streaming_case
         r = run_workload(name, n, budget_frac=budget_frac,
-                         plan_mode="streaming", device=device)
+                         plan_mode="streaming", device=device,
+                         cache_dir=cache_dir)
         print("bench (streaming):", fmt_row(name, r), flush=True)
         rows.append(_row(name, n, r))
     if check:
@@ -355,9 +364,10 @@ SWEEP_LOOKAHEADS = (100, 1_000, 10_000)
 
 def run_sweep(cases=None, budgets=SWEEP_BUDGETS,
               lookaheads=SWEEP_LOOKAHEADS,
-              device: Device = None) -> list[dict]:
+              device: Device = None, cache_dir=None) -> list[dict]:
     """Budget x lookahead grid over the §8.2 scenarios: one row per
-    (case, budget_frac, lookahead) cell."""
+    (case, budget_frac, lookahead) cell.  With ``cache_dir`` a case is
+    traced once and every cell plans from the cached trace."""
     cases = cases if cases is not None else TINY_BENCH_CASES
     rows = []
     for name, n in cases:
@@ -365,7 +375,7 @@ def run_sweep(cases=None, budgets=SWEEP_BUDGETS,
             for la in lookaheads:
                 r = run_workload(name, n, budget_frac=float(b),
                                  plan_overrides={"lookahead": int(la)},
-                                 device=device)
+                                 device=device, cache_dir=cache_dir)
                 print(f"sweep: {name:12s} n={n} budget={b:<5} "
                       f"lookahead={la:<6} | mage={r.mage_s:8.3f}s "
                       f"os={r.os_s:8.3f}s speedup={r.speedup_vs_os:5.2f}x "

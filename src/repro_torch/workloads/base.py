@@ -8,9 +8,9 @@ first, then the computation runs, then outputs are written (§8.1.3), so
 memory pressure is real.
 
 Registered: the five garbled-circuit workloads, the five CKKS workloads,
-the two §8.8 applications (passreuse, pir) and the two n-party Shamir
+the two §8.8 applications (passreuse, pir), the two n-party Shamir
 workloads (shamir_stats, shamir_cmp; the parties are the job's
-workers).  A CKKS workload's ``inputs`` and ``oracle`` also take
+workers) and ``aggsum``, the secure-aggregation sum as a GC program.  A CKKS workload's ``inputs`` and ``oracle`` also take
 ``ckks_params``, the parameters the job runs at.  A build traces one
 program per worker (``ProgramOptions``' ``worker`` and ``num_workers``);
 passreuse takes one worker only.
@@ -60,8 +60,8 @@ def register(w: Workload) -> Workload:
 
 
 def get(name: str) -> Workload:
-    from . import (apps, ckks_workloads, gc_workloads,  # noqa: F401
-                   shamir_workloads)
+    from . import (agg_workload, apps, ckks_workloads,  # noqa: F401
+                   gc_workloads, shamir_workloads)
     try:
         return REGISTRY[name]
     except KeyError:
