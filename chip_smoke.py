@@ -7,8 +7,10 @@ It drives the port's three kernel paths: the planned two-party garbled
 merge (GC) and the other GC workloads and apps, the planned CKKS jobs
 (both kinds of job at four workers a party, in one process and as a fleet
 of one process a rank from saved plans, and both served by the plan-cache
-daemon) and serving qwen2-1.5b (and, briefly, stablelm-3b) with the paged
-decode; and three paths without a kernel of their own: the n-party
+daemon) and serving qwen2-1.5b (and, briefly, stablelm-3b and every other
+model family: MoE, the Mamba2 hybrid, xLSTM, the encoder-decoder, the
+int8 KV cache and a prompt of 8192 tokens) with the paged decode; and
+three paths without a kernel of their own: the n-party
 Shamir jobs on the card, the §8.2 scenario simulator (``bench``, host
 work) and secure aggregation (its sums on the card).
 TF32 stays off for the whole run: the plain versions' float32 products run
@@ -43,7 +45,7 @@ in full float32.  Phases, each raising on failure:
 6. ckks parity   rmvmul n=4 and rstats n=8 at rings 128 and 1024 on the
                  card equal their device="cpu" runs: decoded outputs and
                  the final engine memory, bit for bit;
-7. main          the planned two-party merge at n=8192 records per party
+7. main          the planned two-party merge at n=4096 records per party
                  (Fig. 8's 16384 cut to fit the time limit), checked
                  against the oracle, every AND gate through the kernels;
 8. ckks main     rmvmul n=24 at ring 1024, levels 2, budget 0.4, 8
@@ -91,9 +93,9 @@ in full float32.  Phases, each raising on failure:
 11. workers      multi-worker jobs and the overlap backend at Fig. 10's
                  four workers a party, each checked against its oracle
                  beside the one-worker job of the same n: two-party merge
-                 n=1024 unbounded (batched), n=2048 planned at 0.4 with
-                 16 prefetch pages (batched) and unbounded on the batched
-                 and the overlap loop; rsum n=256 and rmvmul n=24 at ring 1024
+                 n=1024 unbounded and planned at 0.4 with 16 prefetch
+                 pages (batched), n=2048 unbounded on the batched and the
+                 overlap loop; rsum n=256 and rmvmul n=24 at ring 1024
                  planned (lookahead 100, 16 prefetch pages) and unbounded
                  on both loops; NET messages and bytes per worker link,
                  posted and in-flight receives, swaps; every AND gate and
@@ -212,6 +214,14 @@ in full float32.  Phases, each raising on failure:
                  card equals the same run with device="cpu": greedy tokens,
                  and teacher-forced logits within relative 1e-4, for the
                  paged and the contiguous decode;
+    families parity  every family of the serve families phase at its
+                 reduced config in f32, card against CPU within relative
+                 1e-4: prefill logits and caches, three contiguous decode
+                 steps and (but int8) three paged ones through the kernel;
+                 deepseek-moe-16b, phi3.5-moe, zamba2-7b, xlstm-1.3b,
+                 chameleon-34b, seamless-m4t-medium as an ATTN stack,
+                 qwen2 with the int8 KV cache, and the encoder-decoder's
+                 prefill and serve_step_encdec;
 22. serve main   qwen2-1.5b at full width in bf16 (seeded weights) through
                  run_server with the paged decode: 4 requests of 200-token
                  prompts, 64 new tokens each, every decode attention through
@@ -221,12 +231,33 @@ in full float32.  Phases, each raising on failure:
 23. serve stablelm  stablelm-3b (head_dim 80) at full width, 1 request of
                  64 prompt tokens and 8 new ones, paged (7 steps x 32
                  layers wrapper calls) against its contiguous decode;
+    serve families   each model at its published widths and depth, seeded
+                 on the card and freed before the next: deepseek-moe-16b
+                 (64 routed experts, dense dispatch) and zamba2-7b (81
+                 Mamba2 layers, 13 applications of one shared attention
+                 block of head_dim 112), 2 requests of 128 + 16 tokens
+                 through run_server paged (28 and 13 calls a step), the
+                 first request teacher-forced through the paged and the
+                 contiguous decode in bf16 (greedy agreement, expert
+                 routing flips) and in the model rebuilt in f32 (logits
+                 within 1e-3), the bf16 residual stream against f32's
+                 block by block; xlstm-1.3b the same, paged without a
+                 paged call, tokens equal to the contiguous run's; seamless-m4t-medium's encoder-decoder
+                 (256 frames, a 16-token prompt fed through
+                 serve_step_encdec, its last logits within 3e-2 of
+                 encdec_prefill's, 16 greedy steps); qwen2-1.5b with the
+                 int8 KV cache beside bf16 (agreement, logits, KV bytes)
+                 and with a prompt of 8192 tokens through _sdpa_chunked
+                 (layer 0 held to the dense formula within 1e-4 in f32),
+                 then 8 paged steps; ms a decode step, prefill tokens/s,
+                 peak memory and paged calls of each;
 24. attn record  a wrapper call timed at the main path's lengths and at the
                  32768-token batch: device time summed over the kernels it
                  launches (split and combine also apart, profiler), the
                  host's time per call over prepared and over host tables
                  (events), beside the bound, the plain version and gather +
-                 scaled_dot_product_attention;
+                 scaled_dot_product_attention; and at four lengths of each
+                 serve families path, at its heads (``by_path``);
 25. serve profile a few decode steps of the serve main job under
                  torch.profiler: device time by op and the busy share.
 
@@ -271,7 +302,10 @@ from repro_torch.kernels.paged_attn import kernel as pk  # noqa: E402
 from repro_torch.kernels.paged_attn import ops as pops  # noqa: E402
 from repro_torch.kernels.paged_attn import ref as pref  # noqa: E402
 from repro_torch.launch.serve import paged_cache, run_server  # noqa: E402
-from repro_torch.models import init_lm, lm_decode, lm_prefill  # noqa: E402
+from repro_torch.models import (encdec_init_caches,  # noqa: E402
+                                encdec_prefill, encode, init_encdec, init_lm,
+                                lm_decode, lm_prefill)
+from repro_torch.models import layers as mlayers  # noqa: E402
 from repro_torch.core.bytecode import (Op, ProgramFile,  # noqa: E402
                                        encode_chunk, iter_instructions)
 from repro_torch.core.liveness import (file_digest,  # noqa: E402
@@ -288,7 +322,8 @@ from repro_torch.protocols.ckks.params import CkksParams  # noqa: E402
 from repro_torch.scenarios import (BENCH_CASES, OS_PAGE_BYTES,  # noqa: E402
                                    STORAGE, TINY_STREAMING_CASE, cost_fn,
                                    measure_traffic, run_bench, scenario_spec)
-from repro_torch.serve.serve_step import Request, serve_step  # noqa: E402
+from repro_torch.serve.serve_step import (Request, serve_step,  # noqa: E402
+                                          serve_step_encdec)
 from repro_torch.workloads import fast_trace  # noqa: E402
 from repro_torch.workloads import get as get_workload  # noqa: E402
 
@@ -771,11 +806,12 @@ def _gate_timing(name: str, a, b, r, tab, reps: int) -> dict:
 # ---------------------------------------------------------------------------
 
 #: the main path: the JAX package's Fig. 8 merge case
-#: (benchmarks/fig8_swap.py), its n = 16384 cut to 8192 so that the whole
-#: script stays well inside its time limit on a slow host (the main phase
-#: took 235 s at 16384: its swap directives stop batching, so it runs at
-#: the host's pace per AND call)
-MAIN = dict(n=8192, memory_budget=0.4, lookahead=10_000, prefetch_pages=64)
+#: (benchmarks/fig8_swap.py), its n = 16384 cut to 8192 and then to 4096
+#: so that the whole script stays well inside its time limit on a slow
+#: host (the main phase took 235 s at 16384 and 127 s at 8192: its swap
+#: directives stop batching, so it runs at the host's pace per AND call;
+#: the second cut made room for the serve families phase)
+MAIN = dict(n=4096, memory_budget=0.4, lookahead=10_000, prefetch_pages=64)
 #: small enough to run on the CPU too, with a budget that forces swaps
 PARITY = dict(n=256, memory_budget=0.4, lookahead=10_000, prefetch_pages=8)
 #: no prefetch buffer: the plan keeps synchronous SWAP_IN / SWAP_OUT
@@ -2424,8 +2460,9 @@ FIG10_N = 1024
 #: oracle, each p = 4 job beside the p = 1 job of the same n and plan.
 #: merge at FIG10_N unbounded on the batched loop; at Fig. 10's tiny
 #: n = 2048 unbounded on both loops (91.6 s at n = 16384 on the overlap
-#: loop); planned it is cut to n = 2048
-#: (benchmarks/fig10_parallel.py:29) on the batched loop only (its
+#: loop); planned it is cut to FIG10_N (from Fig. 10's tiny 2048,
+#: benchmarks/fig10_parallel.py:29, where its two runs took 52.6 s; at
+#: 1024 the p = 1 plan still swaps 381/381) on the batched loop only (its
 #: overlap run is the parity job's): NET directives and swap directives
 #: are barriers to exec.batching, so the planned program batches almost
 #: nothing and runs at the host's pace per AND call (the phase took 341 s
@@ -2434,9 +2471,9 @@ FIG10_N = 1024
 WORKER_JOBS = [
     ("merge", FIG10_N, UNBOUNDED, WORKERS, ("batched",)),
     ("merge", FIG10_N, UNBOUNDED, 1, ("batched",)),
-    ("merge", 2048, W_GC_PLAN, WORKERS, ("batched",)),
+    ("merge", FIG10_N, W_GC_PLAN, WORKERS, ("batched",)),
     ("merge", 2048, UNBOUNDED, WORKERS, W_LOOPS),
-    ("merge", 2048, W_GC_PLAN, 1, ("batched",)),
+    ("merge", FIG10_N, W_GC_PLAN, 1, ("batched",)),
     ("merge", 2048, UNBOUNDED, 1, ("batched",))] + [
     (wl, n, plan, p, W_LOOPS if p > 1 else ("batched",))
     for wl, n in (("rsum", 256), ("rmvmul", 24))
@@ -3870,6 +3907,38 @@ ATTN_KERNELS = ("paged_attn_split_kernel", "paged_attn_combine_kernel")
 STABLELM = get_config("stablelm-3b")
 #: its paged serve: 1 request of a 64-token prompt, 8 new tokens
 SERVE_STABLELM = dict(n_req=1, prompt=64, max_new=8, max_seq=73, batch=2)
+#: the serve families phase (src/repro_torch/configs/*.py), each at its
+#: published widths and depth: a MoE model, the Mamba2 hybrid (its shared
+#: block's head_dim is 112), xLSTM and the encoder-decoder
+DEEPSEEK = get_config("deepseek-moe-16b")
+ZAMBA2 = get_config("zamba2-7b")
+XLSTM = get_config("xlstm-1.3b")
+SEAMLESS = get_config("seamless-m4t-medium")
+#: 2 requests of 128 prompt tokens and 16 new ones each (the launcher's
+#: max_seq rule)
+FAMILY_JOB = dict(n_req=2, prompt=128, max_new=16, max_seq=145, batch=2)
+#: the encoder-decoder: batch 2, 256 seeded frames, a 16-token prompt fed a
+#: token at a time, then 16 greedy steps
+ENCDEC_JOB = dict(batch=2, frames=256, prompt=16, max_new=16)
+#: qwen2-1.5b's int8 KV cache beside its bf16 one
+INT8_JOB = dict(n_req=2, prompt=200, max_new=16, max_seq=217, batch=2)
+#: a prompt at the reference's CHUNKED_SDPA_THRESHOLD, then paged steps
+LONG_PROMPT, LONG_STEPS = 8192, 8
+#: chunked attention against the dense formula, both in float32
+CHUNKED_REL = 1e-4
+#: a family's paged decode against its contiguous decode, both in float32
+#: at full width (bf16 rounding of seeded weights amplified through 28 to
+#: 94 layers makes the bf16 decodes differ by more than SERVE_REL: the f32
+#: model is where the two paths are held to each other)
+F32_REL = 1e-3
+#: the families held card against CPU at their reduced configs in f32
+#: (tests/test_torch_lm_families.py's FAMILIES), within the tests' 1e-4
+FAMILY_PARITY = [("deepseek-moe-16b", "bfloat16"),
+                 ("phi3.5-moe-42b-a6.6b", "bfloat16"),
+                 ("zamba2-7b", "bfloat16"), ("xlstm-1.3b", "bfloat16"),
+                 ("chameleon-34b", "bfloat16"),
+                 ("seamless-m4t-medium", "bfloat16"), ("qwen2-1.5b", "int8")]
+PARITY_REL = 1e-4
 #: lengths at the kernel's edges: one token, either side of a page (and of
 #: a four-warp tile), a 2-page chunk exactly and plus one, decode_32k
 ATTN_EDGES = (1, 63, 64, 65, 128, 129, 32768)
@@ -4003,6 +4072,20 @@ def phase_attn_kernels(dev) -> float:
         edge = max(edge, _attn_check(x, f"group 16 {dtype}, prepared",
                                      _attn_tables(x, 2)))
         cases += 2
+        # the serve families' heads: zamba2-7b's shared block (head_dim
+        # 112) and deepseek-moe-16b's, at their prompts' lengths and
+        # beyond a page
+        for name, cfg in (("zamba2", ZAMBA2), ("deepseek", DEEPSEEK)):
+            for lens2 in ([129, 144], [1, 200], [LONG_PROMPT, 65]):
+                x = _attn_inputs(lens2[0] + cfg.head_dim, 2, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.head_dim, PAGE,
+                                 -(-max(lens2) // PAGE), dtype, dev,
+                                 lens=lens2)
+                edge = max(edge, _attn_check(x, f"{name} {lens2} {dtype}"))
+                edge = max(edge, _attn_check(x, f"{name} {lens2} {dtype}, "
+                                             f"2-page chunks",
+                                             _attn_tables(x, 2)))
+                cases += 2
     err = max(err, edge)
     log(f"attn kernels: paged_decode_attention equals its plain version "
         f"within rtol {ATTN_RTOL} / atol {ATTN_ATOL} in {cases} cases (f32 "
@@ -4011,7 +4094,8 @@ def phase_attn_kernels(dev) -> float:
         f"{LONG_BATCH} at lengths {sorted(lens.tolist())} in bf16, over "
         f"host and prepared tables; lengths {ATTN_EDGES} and one more, over "
         f"host tables and 2-page chunks; stablelm-3b's heads; a group of "
-        f"16); max_abs_err {err:.3e} (the edges' {edge:.3e})")
+        f"16; zamba2-7b's heads of 112 and deepseek-moe-16b's); "
+        f"max_abs_err {err:.3e} (the edges' {edge:.3e})")
     return err
 
 
@@ -4030,12 +4114,14 @@ def _serve(model, cfg, prompts, job: dict, paged: bool):
 
 
 def _forced_logits(model, cfg, prompt, tokens, paged: bool,
-                   max_seq: int) -> torch.Tensor:
+                   max_seq: int, times: dict | None = None) -> torch.Tensor:
     """(len(tokens), vocab) logits of the prefill and of each decode step
     fed ``tokens`` (teacher forcing), through the paged or the contiguous
-    decode."""
+    decode; ``times`` (if given) gains the prefill's and the decode's
+    seconds, each synchronised."""
     dev = model.device
     with torch.inference_mode():
+        t0 = time.perf_counter()
         toks = torch.as_tensor(np.asarray(prompt), device=dev)[None]
         plen = toks.shape[1]
         logits, caches = lm_prefill(model, toks, cfg,
@@ -4045,12 +4131,20 @@ def _forced_logits(model, cfg, prompt, tokens, paged: bool,
             caches, clen = paged_cache(cfg, caches, max_seq), None
         else:
             clen = torch.tensor([plen], device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         for t in tokens[:-1]:
             logits, caches = lm_decode(
                 model, torch.tensor([[t]], device=dev), caches, clen, cfg)
             if clen is not None:
                 clen = clen + 1
             rows.append(logits[0, -1])
+        torch.cuda.synchronize()
+    if times is not None:
+        times["prefill_s"] = times.get("prefill_s", 0.0) + t1 - t0
+        times["decode_s"] = times.get("decode_s", 0.0) + \
+            time.perf_counter() - t1
+        times["steps"] = times.get("steps", 0) + len(tokens) - 1
     return torch.stack(rows)
 
 
@@ -4291,12 +4385,631 @@ def phase_serve_stablelm(dev) -> dict:
     return m
 
 
-def _attn_timing(lens, dev, reps: int) -> dict:
-    """The kernel, its plain version and gather + SDPA on qwen2's heads
-    in bf16 at ``lens``; the bound from this input's work."""
+# ---------------------------------------------------------------------------
+# every model family: card against CPU at reduced size, then full widths
+# ---------------------------------------------------------------------------
+
+
+def _cache_leaves(tree) -> list:
+    """The tensors of a cache tree (lists, tuples, dicts) in order."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for x in items for t in _cache_leaves(x)]
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-6))
+
+
+def _caches_rel(got, want) -> tuple[float, int]:
+    """Worst relative difference over two cache trees' float leaves, and
+    the int8 entries and f16 scales that differ (each by at most one step
+    or one ulp, or it raises): a card-vs-CPU difference in the last bits
+    of K can round either way."""
+    g, w = _cache_leaves(got), _cache_leaves(want)
+    if len(g) != len(w) or any(a.shape != b.shape for a, b in zip(g, w)):
+        raise AssertionError("cache trees differ in structure")
+    worst, flips = 0.0, 0
+    for a, b in zip(g, w):
+        if a.dtype in (torch.int8, torch.float16):
+            # int8 payloads, f16 scales: compared as integers (f16 bits;
+            # the scales are positive)
+            if a.dtype == torch.float16:
+                a, b = a.view(torch.int16), b.view(torch.int16)
+            d = (a.cpu().int() - b.int()).abs()
+            if int(d.max()) > 1:
+                raise AssertionError(f"{a.dtype} caches differ by "
+                                     f"{int(d.max())} steps")
+            flips += int((d > 0).sum())
+        else:
+            worst = max(worst, _rel(a, b))
+    return worst, flips
+
+
+def _lm_parity(arch: str, kv: str, dev) -> dict:
+    """A reduced family in f32, card against CPU: prefill logits and
+    caches, three teacher-forced contiguous decode steps (logits, caches)
+    and, unless int8, three paged steps through the kernel (logits; one
+    launch an attention application and step)."""
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
+                              kv_cache_dtype=kv)
+    cpu_model = init_lm(cfg, 0, "cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(21)
+    toks = rng.integers(0, cfg.vocab_size, (2, 23))
+    plen, max_seq = 20, 24
+    n_attn = sum(a.attn is not None for a in cpu_model.apps)
+    out = {"logits": 0.0, "caches": 0.0, "int8_flips": 0, "paged": None}
+    for paged in ((False, True) if kv != "int8" else (False,)):
+        runs = {}
+        for name, model in (("cpu", cpu_model), ("card", card_model)):
+            d = model.device
+            t = torch.as_tensor(toks, device=d)
+            pops.reset_counts()
+            with torch.inference_mode():
+                lg, caches = lm_prefill(model, t[:, :plen], cfg,
+                                        plen if paged else max_seq)
+                rows, pre = [lg], [c.clone() for c in _cache_leaves(caches)]
+                if paged:
+                    caches, clen = paged_cache(cfg, caches, max_seq), None
+                else:
+                    clen = torch.full((2,), plen, device=d)
+                for i in range(plen, plen + 3):
+                    lg, caches = lm_decode(model, t[:, i:i + 1], caches,
+                                           clen, cfg)
+                    rows.append(lg)
+                    if clen is not None:
+                        clen = clen + 1
+            runs[name] = (torch.cat(rows, 1), pre, caches, pops.counts())
+        c = runs["card"][3]
+        if c["plain_calls"] or c["launches"] != (3 * n_attn if paged else 0):
+            raise AssertionError(f"parity {arch} paged={paged}: kernel "
+                                 f"counts {c}")
+        lrel = _rel(runs["card"][0], runs["cpu"][0])
+        crel, flips = _caches_rel(runs["card"][1], runs["cpu"][1])
+        if not paged:
+            c2, f2 = _caches_rel(runs["card"][2], runs["cpu"][2])
+            crel, flips = max(crel, c2), flips + f2
+            out.update(logits=lrel, caches=crel, int8_flips=flips)
+        else:
+            out["paged"] = lrel
+        if max(lrel, crel) >= PARITY_REL:
+            raise AssertionError(f"parity {arch} {kv} paged={paged}: logits "
+                                 f"{lrel}, caches {crel}")
+    out["paged_launches"] = 3 * n_attn if kv != "int8" else 0
+    return out
+
+
+def _encdec_parity(dev) -> dict:
+    """The reduced encoder-decoder in f32, card against CPU: encdec_prefill
+    and four serve_step_encdec steps (logits, tokens, caches)."""
+    cfg = dataclasses.replace(reduced_config("seamless-m4t-medium"),
+                              dtype="float32")
+    cpu_model = init_encdec(cfg, 0, "cpu")
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(22)
+    frames = rng.normal(0, 1, (2, 24, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (2, 5))
+    runs = {}
+    for name, model in (("cpu", cpu_model), ("card", card_model)):
+        d = model.device
+        f = torch.as_tensor(frames, device=d)
+        t = torch.as_tensor(toks, device=d)
+        with torch.inference_mode():
+            rows = [encdec_prefill(model, f, t, cfg)]
+            mem = encode(model, f, cfg)
+            caches = encdec_init_caches(cfg, 2, 8, d)
+            for i in range(4):
+                _, caches, lg = serve_step_encdec(
+                    model, t[:, i:i + 1], mem, caches,
+                    torch.full((2,), i, device=d), cfg)
+                rows.append(lg)
+        runs[name] = (torch.cat(rows, 1), caches)
+    lrel = _rel(runs["card"][0], runs["cpu"][0])
+    crel, _ = _caches_rel(runs["card"][1], runs["cpu"][1])
+    if max(lrel, crel) >= PARITY_REL:
+        raise AssertionError(f"encdec parity: logits {lrel}, caches {crel}")
+    return {"logits": lrel, "caches": crel}
+
+
+def phase_families_parity(dev) -> dict:
+    """Every family this slice serves at its reduced config in f32 on the
+    card equals the same run on the CPU within relative 1e-4 (the CPU
+    tests' tolerance): MoE (deepseek, phi3.5), the Mamba2 hybrid, xLSTM,
+    chameleon's and seamless' ATTN stacks, qwen2 with the int8 KV cache,
+    and the encoder-decoder's step."""
+    out = {}
+    for arch, kv in FAMILY_PARITY:
+        out[f"{arch}:{kv}"] = r = _lm_parity(arch, kv, dev)
+        log(f"families parity: reduced {arch} (kv {kv}) f32, card == CPU: "
+            f"prefill + 3 contiguous steps logits within relative "
+            f"{r['logits']:.3e}, caches {r['caches']:.3e} (int8 entries "
+            f"or f16 scales one step apart: {r['int8_flips']}); paged "
+            + (f"{r['paged']:.3e} over {r['paged_launches']} launches"
+               if r["paged"] is not None else "refused (int8)"))
+    out["encdec"] = r = _encdec_parity(dev)
+    log(f"families parity: reduced seamless-m4t-medium encoder-decoder "
+        f"f32, card == CPU: prefill + 4 serve_step_encdec logits within "
+        f"{r['logits']:.3e}, caches {r['caches']:.3e}")
+    return out
+
+
+def _well_formed(tokens: list, cfg, n: int, what: str) -> None:
+    if any(len(t) != n or min(t) < 0 or max(t) >= cfg.vocab_size
+           for t in tokens):
+        raise AssertionError(f"{what}: malformed outputs")
+
+
+def _free() -> None:
+    """Return the freed model's memory to the card before the next one."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+class _Routing:
+    """Records the experts each MoE call chooses (``models.blocks`` calls
+    ``moe_mlp``; wrapped while the context is open): per call, each
+    token's top-k set and the gap between its k-th and (k+1)-th router
+    probabilities.  The wrapper recomputes the router's softmax as
+    ``moe_mlp`` does and then calls it; it changes no result."""
+
+    def __init__(self):
+        from repro_torch.models import blocks
+        self.blocks, self.calls = blocks, []
+
+    def __enter__(self):
+        inner = self.orig = self.blocks.moe_mlp
+
+        def wrapped(p, x, cfg):
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                  @ p.router, dim=-1)
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1)
+            self.calls.append((top.indices[:, :-1].sort(-1).values.cpu(),
+                               (top.values[:, -2] - top.values[:, -1])
+                               .cpu()))
+            return inner(p, x, cfg)
+        self.blocks.moe_mlp = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.moe_mlp = self.orig
+
+
+def _first_flip(a: list, b: list, per_step: int) -> tuple[int | None, float]:
+    """The first decode step (0 = the prefill) at which two runs' routings
+    differ, and the smallest top-k margin among the differing tokens;
+    (None, inf) if they never differ."""
+    for i, ((ia, ga), (ib, gb)) in enumerate(zip(a, b)):
+        diff = (ia != ib).any(-1)
+        if bool(diff.any()):
+            return i // per_step, float(torch.minimum(ga, gb)[diff].min())
+    return None, float("inf")
+
+
+def _forced_pair(model, cfg, prompt, tokens, max_seq: int,
+                 times: dict | None = None) -> tuple:
+    """The paged and the contiguous decode teacher-forced on ``tokens``,
+    with a model with experts their routings recorded: (paged logits,
+    contiguous logits, the first step whose routings differ or None, the
+    smallest top-k margin among its flipped tokens).  From a flip on the
+    two decodes run other experts and write other K/V."""
+    with _Routing() as rp:
+        lp = _forced_logits(model, cfg, prompt, tokens, True, max_seq)
+    with _Routing() as rc:
+        lc = _forced_logits(model, cfg, prompt, tokens, False, max_seq,
+                            times)
+    if not bool(torch.isfinite(lp).all() and torch.isfinite(lc).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    step, margin = _first_flip(rp.calls, rc.calls, cfg.n_layers) \
+        if cfg.moe else (None, float("inf"))
+    return lp, lc, step, margin
+
+
+#: prompt tokens of the depth profile (bf16 against f32 block by block)
+PROFILE_TOKENS = 16
+
+
+def _block_states(model, cfg, prompt) -> list:
+    """The residual stream after each block application of a prefill of
+    the first PROFILE_TOKENS of ``prompt``, float32 on the host."""
+    dev = model.device
+    toks = torch.as_tensor(np.asarray(prompt[:PROFILE_TOKENS]),
+                           device=dev)[None]
+    out = []
+    with torch.inference_mode():
+        x = mlayers.embed(model.embed, toks)
+        for app in model.apps:
+            x, _ = model.block(app).prefill(x, toks.shape[1])
+            out.append(x.float().cpu())
+    return out
+
+
+def _family_f32(cfg, dev, prompt, tokens, bf16: tuple,
+                states: list) -> dict:
+    """The model rebuilt in float32 at full width from the same seed (the
+    bf16 weights are these rounded): its paged and contiguous decodes
+    teacher-forced on the bf16 run's first request, held to each other
+    within F32_REL before any routing flip; each bf16 decode's logits
+    (``bf16``: paged, contiguous) against the f32 contiguous decode's, the
+    rounding the bf16 model adds; and where it grows: the bf16 model's
+    residual stream after each block (``states``) against the f32
+    model's."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = init_lm(cfg32, 0, dev)
+    lp, lc, step, margin = _forced_pair(model, cfg32, prompt, tokens,
+                                        FAMILY_JOB["max_seq"])
+    depth = [_rel(a, b) for a, b in zip(states,
+                                        _block_states(model, cfg32, prompt))]
+    del model
+    _free()
+    rel = _rel_per_step(lp, lc)[:step]
+    out = {"f32_max_rel_vs_contiguous": float(rel.max()) if len(rel)
+           else float("inf"),
+           "f32_checked_steps": len(rel), "f32_flip": step,
+           "bf16_paged_vs_f32": float(_rel_per_step(bf16[0], lc.cpu())
+                                      .max()),
+           "bf16_contiguous_vs_f32": float(_rel_per_step(bf16[1], lc.cpu())
+                                           .max()),
+           "bf16_vs_f32_by_block": depth}
+    if out["f32_max_rel_vs_contiguous"] >= F32_REL or \
+            len(rel) < len(tokens) // 2:
+        raise AssertionError(f"{cfg.name} f32: paged logits differ from "
+                             f"the contiguous decode's by relative "
+                             f"{out['f32_max_rel_vs_contiguous']} over "
+                             f"{len(rel)} steps (first flip {step}, margin "
+                             f"{margin})")
+    return out
+
+
+def _family_lm(cfg, dev, seed: int, paged_check: bool) -> tuple[dict, dict]:
+    """One decoder-only family at full width through run_server with the
+    paged decode (its kernel counts read around that run), then, with
+    ``paged_check``, the paged and contiguous decodes teacher-forced on its
+    first request's tokens (in bf16, and in f32 in :func:`_family_f32`);
+    without, the contiguous run_server of the first request (tokens
+    equal: an attention-free model's paged decode runs the same ops).
+    Frees the model; returns its metrics and the paged run's counts."""
+    job = FAMILY_JOB
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init_lm(cfg, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    n_attn = sum(a.attn is not None for a in model.apps)
+    prompts = _prompts(seed, cfg, job)
+    _serve(model, cfg, [prompts[0][:8]], dict(job, n_req=1, max_new=2),
+           True)                                 # first calls of each op
+    steps = job["n_req"] * (job["max_new"] - 1)
+    pops.reset_counts()
+    toks, st = _serve(model, cfg, prompts, job, paged=True)
+    counts = pops.counts()
+    if counts["launches"] != steps * n_attn or counts["plain_calls"]:
+        raise AssertionError(f"{cfg.name}: kernel counts {counts}; expected "
+                             f"{steps} steps x {n_attn} attention "
+                             f"applications")
+    _well_formed(toks, cfg, job["max_new"], cfg.name)
+    m = {"arch": cfg.name, "params": sum(p.numel()
+                                         for p in model.parameters()),
+         "weight_bytes": weight_bytes, "init_s": init_s,
+         "n_attn": n_attn, "head_dim": cfg.head_dim,
+         "prefill_tokens": st.prefill_tokens, "prefill_s": st.prefill_s,
+         "prefill_tokens_per_s": st.prefill_tokens / st.prefill_s,
+         "ms_per_decode_step": st.decode_s / st.decode_tokens * 1e3,
+         "launches": counts["launches"],
+         "combine_launches": counts["combine_launches"]}
+    if paged_check:
+        # the first request teacher-forced through both decodes in bf16
+        times = {}
+        lp, lc, step, margin = _forced_pair(model, cfg, prompts[0], toks[0],
+                                            job["max_seq"], times)
+        rel = _rel_per_step(lp, lc)
+        after = float(rel[step:].max()) if step is not None else 0.0
+        rel = rel[:step]
+        m.update(bf16_max_rel_vs_contiguous=float(rel.max()) if len(rel)
+                 else 0.0, bf16_first_flip=step, bf16_flip_margin=margin,
+                 bf16_max_rel_after_flip=after,
+                 greedy_agreement=float((lc.argmax(-1) == torch.tensor(
+                     toks[0], device=dev)).float().mean()),
+                 contiguous_ms_per_decode_step=times["decode_s"]
+                 / times["steps"] * 1e3)
+        first = (lp.cpu(), lc.cpu())
+        states = _block_states(model, cfg, prompts[0])
+    else:
+        # the first request again, contiguous: an attention-free model's
+        # paged decode runs the same ops
+        toks_c, st_c = _serve(model, cfg, prompts[:1], dict(job, n_req=1),
+                              paged=False)
+        if toks_c != toks[:1]:
+            raise AssertionError(f"{cfg.name}: the paged run's tokens differ "
+                                 f"from the contiguous run's")
+        m.update(contiguous_ms_per_decode_step=st_c.decode_s
+                 / st_c.decode_tokens * 1e3, max_rel_vs_contiguous=0.0,
+                 greedy_agreement=1.0)
+    m["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    del model
+    _free()
+    if paged_check:
+        m.update(_family_f32(cfg, dev, prompts[0], toks[0], first, states))
+    log(f"serve families: {cfg.name} at full width ({m['params']} "
+        f"parameters, {weight_bytes} bytes bf16, built on the card in "
+        f"{init_s:.2f} s; {cfg.n_layers} layers, {n_attn} attention "
+        f"applications of head_dim {cfg.head_dim}): {job['n_req']} requests "
+        f"of {job['prompt']} + {job['max_new']} tokens; prefill "
+        f"{m['prefill_tokens_per_s']:.1f} tokens/s, paged decode "
+        f"{m['ms_per_decode_step']:.3f} ms a step (contiguous "
+        f"{m['contiguous_ms_per_decode_step']:.3f}), paged calls "
+        f"{counts['launches']} (== {steps} steps x {n_attn}); greedy "
+        f"agreement with the contiguous decode {m['greedy_agreement']:.4f} "
+        f"(first request);"
+        f" max_memory_allocated {m['max_memory_allocated']} bytes")
+    if paged_check:
+        log(f"  teacher-forced, paged against contiguous: f32 model "
+            f"{m['f32_max_rel_vs_contiguous']:.3e} over "
+            f"{m['f32_checked_steps']} steps (limit {F32_REL}; first "
+            f"routing flip {m['f32_flip']}); bf16 model "
+            f"{m['bf16_max_rel_vs_contiguous']:.3e} before the first "
+            f"routing flip (step {m['bf16_first_flip']}, smallest top-k "
+            f"margin of a flipped token {m['bf16_flip_margin']:.3e}), "
+            f"{m['bf16_max_rel_after_flip']:.3e} after; "
+            f"against the f32 contiguous decode (first request): bf16 "
+            f"paged {m['bf16_paged_vs_f32']:.3e}, bf16 contiguous "
+            f"{m['bf16_contiguous_vs_f32']:.3e}")
+        d = m["bf16_vs_f32_by_block"]
+        marks = sorted({0, len(d) // 4, len(d) // 2, 3 * len(d) // 4,
+                        len(d) - 1})
+        log(f"  the bf16 residual stream against f32's after block "
+            + ", ".join(f"{i + 1}: {d[i]:.3e}" for i in marks)
+            + f" ({PROFILE_TOKENS}-token prefill)")
+    return m, counts
+
+
+def _family_encdec(dev) -> dict:
+    """seamless-m4t-medium's encoder-decoder at full width: encdec_prefill
+    of a 16-token prompt over 256 seeded frames, then the prompt a token at
+    a time through serve_step_encdec from encdec_init_caches (its last
+    step's logits held to the prefill's), then 16 greedy steps."""
+    cfg, job = SEAMLESS, ENCDEC_JOB
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init_encdec(cfg, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    b, plen, new = job["batch"], job["prompt"], job["max_new"]
+    frames = torch.randn((b, job["frames"], cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    toks = torch.as_tensor(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (b, plen)), device=dev)
+    pops.reset_counts()
+    with torch.inference_mode():
+        encdec_prefill(model, frames, toks[:, :2], cfg)       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre = encdec_prefill(model, frames, toks, cfg)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        memory = encode(model, frames, cfg)
+        caches = encdec_init_caches(cfg, b, plen + new, dev)
+        t0 = time.perf_counter()
+        for t in range(plen):
+            nxt, caches, last = serve_step_encdec(
+                model, toks[:, t:t + 1], memory, caches,
+                torch.full((b,), t, device=dev), cfg)
+        torch.cuda.synchronize()
+        feed_s = time.perf_counter() - t0
+        out = [nxt]
+        t0 = time.perf_counter()
+        for t in range(plen, plen + new - 1):
+            nxt, caches, _ = serve_step_encdec(
+                model, nxt, memory, caches, torch.full((b,), t, device=dev),
+                cfg)
+            out.append(nxt)
+        gen_toks = torch.cat(out, 1).tolist()
+        decode_s = time.perf_counter() - t0
+    rel = float(_rel_per_step(last[:, -1], pre[:, -1]).max())
+    _well_formed(gen_toks, cfg, new, cfg.name)
+    if pops.counts()["launches"] or not bool(torch.isfinite(pre).all()):
+        raise AssertionError("encdec: paged calls or non-finite logits")
+    m = {"arch": cfg.name, "init_s": init_s,
+         "params": sum(p.numel() for p in model.parameters()),
+         "prefill_s": prefill_s, "prefill_tokens_per_s": b * plen / prefill_s,
+         "prompt_feed_ms_per_step": feed_s / plen * 1e3,
+         "ms_per_decode_step": decode_s / (new - 1) * 1e3,
+         "rel_feed_vs_prefill": rel,
+         "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    del model, memory, caches
+    _free()
+    if rel >= SERVE_REL:
+        raise AssertionError(f"encdec: the fed prompt's last logits differ "
+                             f"from encdec_prefill's by relative {rel}")
+    log(f"serve families: {cfg.name} encoder-decoder at full width "
+        f"({m['params']} parameters, built in {init_s:.2f} s; "
+        f"{cfg.encoder_layers} + {cfg.n_layers} layers), batch {b}, "
+        f"{job['frames']} frames: encdec_prefill of {plen} tokens "
+        f"{m['prefill_tokens_per_s']:.1f} tokens/s; the prompt fed through "
+        f"serve_step_encdec {m['prompt_feed_ms_per_step']:.3f} ms a step, "
+        f"its last logits within relative {rel:.3e} of the prefill's (limit "
+        f"{SERVE_REL}); {new} greedy steps {m['ms_per_decode_step']:.3f} ms "
+        f"a step; max_memory_allocated {m['max_memory_allocated']} bytes")
+    return m
+
+
+def _kv_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for t in _cache_leaves(caches))
+
+
+def _family_int8(model, dev) -> dict:
+    """qwen2-1.5b with kv_cache_dtype="int8" (the same seeded weights as
+    the bf16 model of the serve main phase) beside the bf16 KV cache,
+    contiguous: the greedy share that agrees, the int8 decode's logits
+    teacher-forced on the bf16 run's tokens against the bf16 decode's, the
+    KV bytes of both."""
+    cfg8 = dataclasses.replace(QWEN2, kv_cache_dtype="int8")
+    job = INT8_JOB
+    model8 = init_lm(cfg8, 0, dev)
+    if not torch.equal(model8.blocks[-1].attn.wq, model.blocks[-1].attn.wq):
+        raise AssertionError("int8: the seeded weights differ from bf16's")
+    prompts = _prompts(9, QWEN2, job)
+    toks_b, st_b = _serve(model, QWEN2, prompts, job, paged=False)
+    pops.reset_counts()
+    toks_8, st_8 = _serve(model8, cfg8, prompts, job, paged=False)
+    if pops.counts()["launches"]:
+        raise AssertionError("int8: paged calls on the contiguous path")
+    _well_formed(toks_8, QWEN2, job["max_new"], "int8")
+    agree = sum(a == b for x, y in zip(toks_b, toks_8)
+                for a, b in zip(x, y)) / (job["n_req"] * job["max_new"])
+    worst = 0.0
+    for p, t in zip(prompts, toks_b):
+        lb = _forced_logits(model, QWEN2, p, t, False, job["max_seq"])
+        l8 = _forced_logits(model8, cfg8, p, t, False, job["max_seq"])
+        if not bool(torch.isfinite(l8).all()):
+            raise AssertionError("int8: non-finite logits")
+        worst = max(worst, float(_rel_per_step(l8, lb).max()))
+    with torch.inference_mode():
+        tok = torch.as_tensor(prompts[0], device=dev)[None]
+        kv_b = _kv_bytes(lm_prefill(model, tok, QWEN2, job["max_seq"])[1])
+        kv_8 = _kv_bytes(lm_prefill(model8, tok, cfg8, job["max_seq"])[1])
+    del model8
+    _free()
+    m = {"greedy_agreement": agree, "max_rel_vs_bf16": worst,
+         "kv_bytes_bf16": kv_b, "kv_bytes_int8": kv_8,
+         "max_seq": job["max_seq"],
+         "ms_per_decode_step_bf16": st_b.decode_s / st_b.decode_tokens * 1e3,
+         "ms_per_decode_step_int8": st_8.decode_s / st_8.decode_tokens * 1e3}
+    log(f"serve families: qwen2-1.5b int8 KV cache beside bf16, "
+        f"{job['n_req']} requests of {job['prompt']} + {job['max_new']} "
+        f"tokens, contiguous: greedy agreement {agree:.4f}; int8 logits "
+        f"teacher-forced on the bf16 tokens within relative {worst:.3e} of "
+        f"bf16's; KV bytes at max_seq {job['max_seq']}: {kv_8} int8 against "
+        f"{kv_b} bf16 ({kv_8 / kv_b:.4f}); decode "
+        f"{m['ms_per_decode_step_int8']:.3f} ms a step int8, "
+        f"{m['ms_per_decode_step_bf16']:.3f} bf16")
+    return m
+
+
+def _family_long(model, dev) -> tuple[dict, dict]:
+    """qwen2-1.5b with one prompt of LONG_PROMPT tokens: the prefill
+    through _sdpa_chunked (every layer, counted), one layer's chunked
+    attention held to the dense formula in float32, then LONG_STEPS paged
+    decode steps (counted) held to the contiguous decode teacher-forced on
+    their tokens."""
+    cfg = QWEN2
+    plen, steps = LONG_PROMPT, LONG_STEPS
+    max_seq = plen + steps + 1
+    toks = torch.as_tensor(np.random.default_rng(24).integers(
+        0, cfg.vocab_size, plen), device=dev)[None]
+    calls = []
+    chunked = mlayers._sdpa_chunked
+
+    def counted(*a, **k):
+        calls.append(a[0].shape[1])
+        return chunked(*a, **k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mlayers._sdpa_chunked = counted
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, caches = lm_prefill(model, toks, cfg, max_seq)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+    finally:
+        mlayers._sdpa_chunked = chunked
+    peak = torch.cuda.max_memory_allocated(dev)
+    if calls != [plen] * cfg.n_layers:
+        raise AssertionError(f"long prompt: _sdpa_chunked calls {calls}")
+    with torch.inference_mode():
+        blk = model.blocks[0]
+        h = mlayers.rmsnorm(blk.ln1, mlayers.embed(model.embed, toks),
+                            cfg.norm_eps)
+        pos = torch.arange(plen, device=dev)[None]
+        q, k, v = (t.float() for t in mlayers._qkv(blk.attn, h, cfg, pos))
+        a = mlayers._sdpa_chunked(q, k, v, cfg, 0)
+        d = mlayers._sdpa_dense(q, k, v, cfg, 0)
+        chunk_rel = _rel(a, d)
+        del q, k, v, a, d, h
+        k_all, v_all = caches[0]
+        unpadded = [(k_all[:, :, :plen], v_all[:, :, :plen])]
+        paged = paged_cache(cfg, unpadded, max_seq)
+        del unpadded
+        token = logits[:, -1].argmax(-1, keepdim=True)
+        out, rows = [int(token[0, 0])], [logits[0, -1]]
+        torch.cuda.synchronize()
+        pops.reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            token, paged, lg = serve_step(model, token, paged, None, cfg)
+            out.append(int(token[0, 0]))
+            rows.append(lg[0, -1])
+        decode_s = time.perf_counter() - t0
+        counts = pops.counts()
+        clen = torch.tensor([plen], device=dev)
+        crow = [logits[0, -1]]
+        for t in out[:-1]:
+            lg, caches = lm_decode(model, torch.tensor([[t]], device=dev),
+                                   caches, clen, cfg)
+            clen = clen + 1
+            crow.append(lg[0, -1])
+    worst = float(_rel_per_step(torch.stack(rows), torch.stack(crow)).max())
+    del caches, paged
+    _free()
+    if counts["launches"] != steps * cfg.n_layers or counts["plain_calls"]:
+        raise AssertionError(f"long prompt: kernel counts {counts}")
+    if chunk_rel > CHUNKED_REL or worst >= SERVE_REL:
+        raise AssertionError(f"long prompt: chunked vs dense {chunk_rel}, "
+                             f"paged vs contiguous {worst}")
+    _well_formed([out], cfg, steps + 1, "long prompt")
+    m = {"prompt": plen, "prefill_s": prefill_s,
+         "prefill_tokens_per_s": plen / prefill_s,
+         "max_memory_allocated": peak, "chunked_vs_dense_rel": chunk_rel,
+         "ms_per_decode_step": decode_s / steps * 1e3,
+         "launches": counts["launches"], "max_rel_vs_contiguous": worst}
+    log(f"serve families: qwen2-1.5b, one prompt of {plen} tokens: prefill "
+        f"through _sdpa_chunked ({len(calls)} layers) in {prefill_s:.3f} s "
+        f"({m['prefill_tokens_per_s']:.1f} tokens/s), max_memory_allocated "
+        f"{peak} bytes; layer 0's chunked attention against the dense "
+        f"formula (f32): relative {chunk_rel:.3e} (limit {CHUNKED_REL}); "
+        f"{steps} paged steps {m['ms_per_decode_step']:.3f} ms a step, "
+        f"{counts['launches']} calls, within relative {worst:.3e} of the "
+        f"contiguous decode (limit {SERVE_REL})")
+    return m, counts
+
+
+def phase_serve_families(dev, qwen2) -> tuple[dict, dict]:
+    """deepseek-moe-16b, zamba2-7b, xlstm-1.3b and seamless-m4t-medium at
+    their published widths and depth, each built on the card from a seed
+    and freed before the next; qwen2-1.5b (``qwen2``, the serve main
+    model) with the int8 KV cache and with a prompt of 8192 tokens.
+    Returns the metrics and each paged path's kernel counts."""
+    out, paths = {}, {}
+    for cfg, seed, check in ((DEEPSEEK, 25, True), (ZAMBA2, 26, True),
+                             (XLSTM, 27, False)):
+        out[cfg.name], paths[cfg.name] = _family_lm(cfg, dev, seed, check)
+    out[SEAMLESS.name] = _family_encdec(dev)
+    out["qwen2-1.5b int8"] = _family_int8(qwen2, dev)
+    out["qwen2-1.5b long"], paths["qwen2-1.5b long"] = \
+        _family_long(qwen2, dev)
+    log("serve families: not on the card: phi3.5-moe-42b-a6.6b (its "
+        "experts alone are about 40.3e9 parameters, 81 GB in bf16: more "
+        "than one H100 holds), chameleon-34b (68.6 GB, the qwen2 code path; "
+        "both at reduced size in the families parity phase)")
+    return out, paths
+
+
+def _attn_timing(lens, dev, reps: int, cfg=QWEN2) -> dict:
+    """The kernel, its plain version and gather + SDPA on ``cfg``'s heads
+    (qwen2's by default) in bf16 at ``lens``; the bound from this input's
+    work."""
     batch = len(lens)
     mp = -(-max(lens) // PAGE)
-    qh, kvh, hd = QWEN2.n_heads, QWEN2.n_kv_heads, QWEN2.head_dim
+    qh, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     x = _attn_inputs(sum(lens), batch, qh, kvh, hd, PAGE, mp,
                      torch.bfloat16, dev, lens=lens)
     q, kp, vp, bt, sl = x
@@ -4388,11 +5101,50 @@ def _attn_wrapper_costs(dev, reps: int = 2000) -> dict:
     return _host_us(pieces, reps)
 
 
-def attn_record(dev, counts: dict, err: float) -> tuple[dict, dict]:
+#: each paged path of the serve families phase and the config whose heads
+#: its calls take
+FAMILY_PATHS = {"deepseek-moe-16b": DEEPSEEK, "zamba2-7b": ZAMBA2,
+                "xlstm-1.3b": XLSTM, "qwen2-1.5b long": QWEN2}
+
+
+def _attn_by_path(dev, paths: dict) -> dict:
+    """Each serve families path's paged calls: its launches and, where it
+    has any, the kernel timed at its shortest and longest lengths (equal
+    weights), beside the bound and the plain version."""
+    out = {}
+    for name, counts in paths.items():
+        sizes = sorted(counts["launch_sizes"])
+        entry = {"launches": counts["launches"]}
+        if sizes:
+            pick = sorted({sizes[0], sizes[-1]})
+            ones = [_attn_timing(list(lens), dev, 20, FAMILY_PATHS[name])
+                    for lens in pick]
+            mean = {k: statistics.fmean(o[k] for o in ones) for k in
+                    ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
+            entry.update(ms=mean["ms"], plain_ms=mean["plain_ms"],
+                         library_ms=mean["library_ms"],
+                         bound_ms=max(mean["bytes_ms"], mean["ops_ms"]),
+                         head_dim=FAMILY_PATHS[name].head_dim,
+                         lengths=[list(x) for x in pick],
+                         err=max(o["err"] for o in ones))
+            log(f"  paged_decode_attention on the {name} path "
+                f"({counts['launches']} calls; heads "
+                f"{FAMILY_PATHS[name].n_heads}/{FAMILY_PATHS[name].n_kv_heads}"
+                f" of {FAMILY_PATHS[name].head_dim}) at lengths "
+                f"{[x[0] for x in pick]}: {mean['ms']:.5f} ms per call (bound "
+                f"{entry['bound_ms']:.3e} ms, plain {mean['plain_ms']:.4f} ms,"
+                f" gather + SDPA {mean['library_ms']:.4f} ms)")
+        out[name] = entry
+    return out
+
+
+def attn_record(dev, counts: dict, err: float,
+                paths: dict | None = None) -> tuple[dict, dict]:
     """The kernels at every length of the serve main path, launch-weighted,
     and at the 32768-token batch: device time per call summed over the
     kernels it launches (split and combine also apart), the host's pace per
-    call over prepared and over host tables (events, back to back)."""
+    call over prepared and over host tables (events, back to back); and
+    each serve families path (``paths``: its counts) in ``by_path``."""
     sizes = counts["launch_sizes"]
     total = sum(sizes.values())
     keys = ("ms", "host_ms", "host_tables_ms", "plain_ms", "library_ms",
@@ -4443,6 +5195,12 @@ def attn_record(dev, counts: dict, err: float) -> tuple[dict, dict]:
         if ms >= lib:
             log(f"  NOTE: at the {name} the kernels ({ms:.5f} ms) are not "
                 f"faster than gather + SDPA ({lib:.5f} ms)")
+    by_path = {"serve main": {k: row[k] for k in ("launches", "ms",
+                                                  "plain_ms", "bound_ms")}}
+    by_path.update(_attn_by_path(dev, paths or {}))
+    for entry in by_path.values():
+        row["max_abs_err"] = max(row["max_abs_err"], entry.pop("err", 0.0))
+    row["by_path"] = by_path
     costs = _attn_wrapper_costs(dev)
     log("  host µs per piece of a paged wrapper call at 230 tokens (host "
         "clock, back to back): " + ", ".join(f"{k} {v:.2f}" for k, v in
@@ -4531,12 +5289,15 @@ def main() -> None:
     parity, parity_ref = timed("parity", phase_parity, dev, cpu_parity)
     ckks_parity = timed("ckks parity", phase_ckks_parity, dev)
     serve_parity = timed("serve parity", phase_serve_parity, dev)
+    families_parity = timed("families parity", phase_families_parity, dev)
     counts, metrics, main_out = timed("main", phase_main, dev)
     ntt_counts, ckks_metrics, ckks_out = timed("ckks main", phase_ckks_main,
                                                dev)
     attn_counts, serve_metrics, model = timed("serve main", phase_serve_main,
                                               dev)
     stablelm = timed("serve stablelm", phase_serve_stablelm, dev)
+    families, family_paths = timed("serve families", phase_serve_families,
+                                   dev, model)
     # after the serve phases, which so run in the process as they did
     # before the baselines existed
     with base_pool:
@@ -4569,7 +5330,7 @@ def main() -> None:
         "workers": w_ntt, "fleet": f_ntt, "streaming": s_ntt,
         "serve daemon": d_paths["serve daemon"][1]}, ntt_errs)
     attn_row, attn_timing = timed("attn record", attn_record, dev,
-                                  attn_counts, attn_err)
+                                  attn_counts, attn_err, family_paths)
     profiled = timed("profile", phase_profile, dev)
     ckks_profiled = timed("ckks profile", phase_ckks_profile, dev)
     serve_profiled = timed("serve profile", phase_serve_profile, dev, model)
@@ -4582,7 +5343,8 @@ def main() -> None:
         "ntt_record": ntt_big, "ckks_parity": ckks_parity,
         "ckks_profile": ckks_profiled, "serve_main": serve_metrics,
         "serve_parity": serve_parity, "attn": attn_timing,
-        "serve_stablelm": stablelm,
+        "serve_stablelm": stablelm, "serve_families": families,
+        "families_parity": families_parity,
         "serve_profile": serve_profiled, "baselines": baselines,
         "gc_workloads": gc_workloads, "workers": workers, "fleet": fleet,
         "streaming": streaming, "shamir": shamir,

@@ -7,7 +7,7 @@ JAX package's ``encode_chunk(program.instrs)`` produces ``rec``.
 
 A CKKS context crosses as its keys, NumPy arrays (``ckks_context_from_keys``),
 and a language model as its parameter tree, NumPy arrays
-(``lm_params_from_jax``).  The garbler's state
+(``lm_params_from_jax``, ``encdec_params_from_jax``).  The garbler's state
 needs no converter: R and every fresh label come from
 ``numpy.random.default_rng(seed)`` in the same order in both packages, as
 do a CKKS context's keys when both are built from one seed.
@@ -89,24 +89,62 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _leaves(tree: dict, prefix: str = ""):
+    """(dotted path, leaf) of a nested dict of arrays, in key order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _unstack(stacked: dict, index: tuple, prefix: str, out: dict) -> None:
+    """One layer's leaves of a stacked parameter tree, at ``index`` of its
+    leading axes, into ``out`` under ``prefix``."""
+    for path, leaf in _leaves(stacked):
+        out[prefix + path] = _tensor(np.asarray(leaf)[index])
+
+
 def lm_params_from_jax(params: dict, cfg: ModelConfig) -> dict:
     """The JAX package's ``init_lm`` parameter tree (leaves as arrays) ->
-    the port's ``LM`` state dict.  The dense layout scan-stacks every layer
-    in ``params["groups"][0]`` with a leading layer axis
-    (``lm._stack_init``); it is split into ``blocks.<i>``."""
-    if len(params["groups"]) != 1:
-        raise ValueError(f"{cfg.name}: expected the dense layout's one scan "
-                         f"group, got {len(params['groups'])}")
-    out = {"embed.embed": _tensor(params["embed"]["embed"]),
-           "final_norm.scale": _tensor(params["final_norm"]["scale"])}
-    if "lm_head" in params["embed"]:
-        out["embed.lm_head"] = _tensor(params["embed"]["lm_head"])
-    for mod, leaves in params["groups"][0].items():
-        for name, stacked in leaves.items():
-            t = _tensor(stacked)
-            if t.shape[0] != cfg.n_layers:
-                raise ValueError(f"{mod}.{name} stacks {t.shape[0]} layers, "
-                                 f"the config has {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                out[f"blocks.{i}.{mod}.{name}"] = t[i].clone()
+    the port's ``LM`` state dict, bit for bit.  A scan group stacks its
+    layers on a leading axis (``lm._stack_init``), a rep group each
+    segment's on two, ``(n_rep, count)``; every layer goes to its block
+    ``blocks.<i>`` in layer order (``models.lm.applications``), and the
+    hybrid's one shared block to ``shared_attn``."""
+    from .models.lm import applications, grouped_layout
+    groups = grouped_layout(cfg)
+    if len(params["groups"]) != len(groups):
+        raise ValueError(f"{cfg.name}: the layout has {len(groups)} groups, "
+                         f"the tree {len(params['groups'])}")
+    out = {f"embed.{k}": _tensor(v) for k, v in params["embed"].items()}
+    out["final_norm.scale"] = _tensor(params["final_norm"]["scale"])
+    for app in applications(cfg):
+        if app.block is None:
+            continue
+        tree = params["groups"][app.group]
+        if app.seg is not None:
+            tree = tree[app.seg]
+        first = next(_leaves(tree))[1]
+        if any(i >= n for i, n in zip(app.index, np.shape(first))):
+            raise ValueError(f"{cfg.name}: group {app.group} stacks "
+                             f"{np.shape(first)}, the layout reaches "
+                             f"{app.index}")
+        _unstack(tree, app.index, f"blocks.{app.block}.", out)
+    if "shared_attn" in params:
+        out.update({f"shared_attn.{k}": _tensor(v)
+                    for k, v in _leaves(params["shared_attn"])})
+    return out
+
+
+def encdec_params_from_jax(params: dict, cfg: ModelConfig) -> dict:
+    """The JAX package's ``init_encdec`` parameter tree -> the port's
+    ``EncDec`` state dict, bit for bit: the stacked encoder and decoder
+    layers to ``enc.<i>`` and ``dec.<i>``."""
+    out = {f"embed.{k}": _tensor(v) for k, v in params["embed"].items()}
+    for norm in ("enc_norm", "final_norm"):
+        out[f"{norm}.scale"] = _tensor(params[norm]["scale"])
+    for part, n in (("enc", cfg.encoder_layers), ("dec", cfg.n_layers)):
+        for i in range(n):
+            _unstack(params[part], (i,), f"{part}.{i}.", out)
     return out

@@ -1,13 +1,20 @@
 """Serving launcher: prefill + decode with the continuous batcher (the
-port's copy of ``repro.launch.serve``).
+port's copy of ``repro.launch.serve``), for every arch of
+``configs.ARCHS``: the ATTN stacks (dense, MoE, and the VLM and audio
+backbones, which the reference's CLI serves through ``init_lm`` as well),
+xLSTM and the Mamba2 hybrid.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
         [--reduced] [--requests 4 --prompt-len 16 --max-new 8] [--paged] \
         [--device cpu]
 
 --paged decodes through the paged KV cache, whose attention runs the
-paged-attention kernel (``kernels/paged_attn``), and prints the MAGE page
-schedule stats for the run.  Without it decode attends over a contiguous,
+paged-attention kernel (``kernels/paged_attn``; every attention
+application: each layer of an ATTN stack, each of the hybrid's shared-block
+applications), and prints the MAGE page schedule stats for the run; an
+attention-free model (xLSTM) decodes on its states and makes no paged
+call.  An int8 KV cache (``cfg.kv_cache_dtype``) has no paged decode and
+raises under --paged.  Without --paged decode attends over a contiguous,
 padded cache.  The model's weights are seeded random numbers: the
 repository holds no checkpoint.  It runs on the card unless ``--device
 cpu`` is given, which runs the plain versions.
@@ -24,7 +31,8 @@ import torch
 
 from ..configs import get_config, reduced_config
 from ..kernels import resolve_device
-from ..models import init_lm
+from ..models import PagedCaches, init_lm
+from ..models.lm import attention_kv, check_supported, recurrent_states
 from ..serve.paged_kv import PagedKVCache, PagedKVConfig, plan_kv_schedule
 from ..serve.serve_step import Batcher, Request, prefill_step, serve_step
 
@@ -53,19 +61,31 @@ def _kv_plan(max_seq: int) -> dict:
             "sync_fallbacks": rep.schedule.sync_fallbacks}
 
 
-def paged_cache(cfg, caches, max_seq: int) -> PagedKVCache:
-    """A fresh one-sequence paged cache of every layer, room for max_seq
-    tokens in 64-token pages (``PagedKVConfig``'s default), holding the
-    prompt's K/V from ``lm_prefill``'s caches (unpadded)."""
+def paged_cache(cfg, caches, max_seq: int) -> PagedCaches:
+    """The caches of a paged decode after ``lm_prefill``'s (unpadded)
+    ``caches``: a fresh paged cache with room for max_seq tokens a sequence
+    in 64-token pages (``PagedKVConfig``'s default), one layer an attention
+    application (every layer of an ATTN stack, the hybrid's shared-block
+    applications), holding the prompt's K/V; and the recurrent states of
+    the prefill's tree.  An attention-free model has no paged cache.  An
+    int8 KV cache raises ``ValueError``: the paged kernel takes float32 or
+    bfloat16 pages."""
+    check_supported(cfg, True)
+    states = recurrent_states(cfg, caches)
+    kvs = attention_kv(cfg, caches)
+    if kvs is None:
+        return PagedCaches(None, states)
+    k, v = kvs
     kv = PagedKVConfig()
     kv = dataclasses.replace(kv, max_pages_per_seq=-(-max_seq //
                                                      kv.page_size))
-    k, v = caches[0]
-    cache = PagedKVCache(kv, kv.max_pages_per_seq, 1, cfg.n_kv_heads,
-                         cfg.head_dim, k.dtype, n_layers=cfg.n_layers,
-                         device=k.device)
-    cache.write_prefill(0, k[:, 0], v[:, 0])
-    return cache
+    batch = k.shape[1]
+    cache = PagedKVCache(kv, batch * kv.max_pages_per_seq, batch,
+                         cfg.n_kv_heads, cfg.head_dim, k.dtype,
+                         n_layers=k.shape[0], device=k.device)
+    for seq in range(batch):
+        cache.write_prefill(seq, k[:, seq], v[:, seq])
+    return PagedCaches(cache, states)
 
 
 def run_server(cfg, requests: list[Request], batch_size: int, max_seq: int,
@@ -76,7 +96,8 @@ def run_server(cfg, requests: list[Request], batch_size: int, max_seq: int,
     does); tokens land in ``req.output``.  ``params`` is an ``LM`` (the
     tests pass the reference's weights); without it the seeded model is
     built on ``device`` from seed 0.  ``paged`` decodes through a
-    :func:`paged_cache`."""
+    :func:`paged_cache` (an int8 KV cache raises ``ValueError``)."""
+    check_supported(cfg, paged)
     if params is None:
         params = init_lm(cfg, 0, resolve_device(device))
     dev = params.device

@@ -1,9 +1,16 @@
-"""The dense decoder of the serving path: the port's copy of
-``repro.models`` (config, layers, the ATTN block, the LM) for the dense
-family without experts."""
+"""The models of the serving path: the port's copy of ``repro.models``
+(config, layers, the blocks of every kind, the causal LM of every
+decoder-only family, the encoder-decoder's serving half).  The training
+forward and losses (``lm_forward``, ``lm_loss``, ``encdec_forward``,
+``encdec_loss``) are not ported (ROADMAP.md)."""
 
 from .config import BlockKind, ModelConfig
-from .lm import LM, init_caches, init_lm, lm_decode, lm_prefill
+from .encdec import (EncDec, encdec_decode, encdec_init_caches,
+                     encdec_prefill, encode, init_encdec)
+from .lm import (LM, PagedCaches, grouped_layout, init_caches, init_lm,
+                 lm_decode, lm_prefill)
 
-__all__ = ["BlockKind", "LM", "ModelConfig", "init_caches", "init_lm",
-           "lm_decode", "lm_prefill"]
+__all__ = ["BlockKind", "EncDec", "LM", "ModelConfig", "PagedCaches",
+           "encdec_decode", "encdec_init_caches", "encdec_prefill",
+           "encode", "grouped_layout", "init_caches", "init_encdec",
+           "init_lm", "lm_decode", "lm_prefill"]

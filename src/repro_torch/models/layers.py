@@ -1,15 +1,15 @@
-"""Core transformer layers: RMSNorm, RoPE, GQA attention (prefill and
-decode against a contiguous or a paged KV cache), SwiGLU MLP, embeddings.
-The port's copy of ``repro.models.layers`` for the dense decoder.
+"""Core transformer layers: RMSNorm, RoPE, GQA attention (full, prefill,
+decode against a contiguous, an int8 or a paged KV cache, cross-attention),
+SwiGLU MLP, embeddings.  The port's copy of ``repro.models.layers``.
 
 Parameters live in small ``nn.Module``s (:class:`RMSNorm`,
 :class:`Attention`, :class:`MLP`, :class:`Embed`) on an explicit device, in
 the reference's ``(d_in, d_out)`` layout with ``x @ W``; the apply
 functions keep the reference's names and take the module in place of its
 parameter dict.  The reference's sharding constraints are no-ops outside a
-mesh and are dropped.  Not ported: the int8 KV cache and the flash-style
-``_sdpa_chunked`` for prompts of ``CHUNKED_SDPA_THRESHOLD`` tokens or more
-(ROADMAP.md).
+mesh and are dropped.  Prompts of ``CHUNKED_SDPA_THRESHOLD`` tokens or
+more take the flash-style ``_sdpa_chunked`` (online softmax over q and kv
+blocks), as in the reference.
 """
 
 from __future__ import annotations
@@ -37,9 +37,13 @@ def _init(gen: torch.Generator, shape, scale: float,
     return nn.Parameter(w.to(dtype), requires_grad=False)
 
 
+def _const(t: torch.Tensor) -> nn.Parameter:
+    """A parameter holding ``t`` as it is (biases, gates, norm scales)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
 def _zeros(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return _const(torch.zeros(shape, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -129,19 +133,69 @@ def _qkv(p: Attention, x: torch.Tensor, cfg, positions) -> tuple:
     return q, k, v.reshape(b, s, nkv, hd)
 
 
-CHUNKED_SDPA_THRESHOLD = 8192   # the reference blocks attention above this
+CHUNKED_SDPA_THRESHOLD = 8192   # flash-style blocking from this seq on
+SDPA_Q_BLOCK = 512
+SDPA_KV_BLOCK = 1024
 
 
-def _sdpa(q, k, v, cfg, causal_offset: int | None) -> torch.Tensor:
-    """q: (b, sq, nh, hd); k/v: (b, skv, nkv, hd).  causal_offset = skv - sq
-    for causal masking; None = no mask (full).  The reference's einsum and
+def _sdpa_chunked(q, k, v, cfg, causal_offset: int | None,
+                  q_block: int = SDPA_Q_BLOCK,
+                  kv_block: int = SDPA_KV_BLOCK) -> torch.Tensor:
+    """Flash-style online-softmax attention in float32: never materializes
+    (sq, skv), one (b, nkv, group, q_block, kv_block) tile at a time.  The
+    reference's padding to whole blocks, its -1e30 mask (padded keys
+    included) and its 1e-30 floor on the row sums."""
+    b, sq0, nh, hd = q.shape
+    skv0, nkv = k.shape[1], k.shape[2]
+    group = nh // nkv
+    qpad = (-sq0) % q_block
+    kpad = (-skv0) % kv_block
+    if qpad:
+        q = F.pad(q, (0, 0, 0, 0, 0, qpad))
+    if kpad:
+        k = F.pad(k, (0, 0, 0, 0, 0, kpad))
+        v = F.pad(v, (0, 0, 0, 0, 0, kpad))
+    sq, skv = sq0 + qpad, skv0 + kpad
+    scale = hd ** -0.5
+    nq, nk = sq // q_block, skv // kv_block
+    qb = q.reshape(b, nq, q_block, nkv, group, hd).float()
+    kb = k.reshape(b, nk, kv_block, nkv, hd).float()
+    vb = v.reshape(b, nk, kv_block, nkv, hd).float()
+    dev = q.device
+    blocks = []
+    for iq in range(nq):
+        qi = qb[:, iq] * scale                       # (b, qb, nkv, g, hd)
+        m = torch.full((b, nkv, group, q_block), -1e30, device=dev)
+        l = torch.zeros((b, nkv, group, q_block), device=dev)
+        acc = torch.zeros((b, nkv, group, q_block, hd), device=dev)
+        for ik in range(nk):
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qi, kb[:, ik])
+            cols = ik * kv_block + torch.arange(kv_block, device=dev)[None, :]
+            if causal_offset is not None:
+                rows = iq * q_block + torch.arange(
+                    q_block, device=dev)[:, None] + causal_offset
+                keep = (cols <= rows) & (cols < skv0)
+            else:
+                keep = (cols < skv0).expand(q_block, kv_block)
+            s = torch.where(keep[None, None, None], s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vb[:, ik])
+            m = m_new
+        out = acc / l.clamp(min=1e-30)[..., None]
+        blocks.append(out.permute(0, 3, 1, 2, 4))    # (b, qb, nkv, g, hd)
+    out = torch.stack(blocks, 1).reshape(b, sq, nh * hd)
+    return out[:, :sq0].to(q.dtype)
+
+
+def _sdpa_dense(q, k, v, cfg, causal_offset: int | None) -> torch.Tensor:
+    """The whole (sq, skv) score matrix at once: the reference's einsum and
     softmax in float32."""
     b, sq, nh, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
-    if sq >= CHUNKED_SDPA_THRESHOLD:
-        raise NotImplementedError(
-            f"prompts of {CHUNKED_SDPA_THRESHOLD} tokens or more need the "
-            f"chunked attention, not ported yet (ROADMAP.md)")
     group = nh // nkv
     qg = q.reshape(b, sq, nkv, group, hd)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
@@ -155,39 +209,98 @@ def _sdpa(q, k, v, cfg, causal_offset: int | None) -> torch.Tensor:
     return out.reshape(b, sq, nh * hd).to(q.dtype)
 
 
+def _sdpa(q, k, v, cfg, causal_offset: int | None) -> torch.Tensor:
+    """q: (b, sq, nh, hd); k/v: (b, skv, nkv, hd).  causal_offset = skv - sq
+    for causal masking; None = no mask (full).  From
+    ``CHUNKED_SDPA_THRESHOLD`` query tokens on, the chunked form."""
+    if q.shape[1] >= CHUNKED_SDPA_THRESHOLD:
+        return _sdpa_chunked(q, k, v, cfg, causal_offset)
+    return _sdpa_dense(q, k, v, cfg, causal_offset)
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    return torch.arange(s, device=x.device)[None].expand(b, s)
+
+
+def attention(p: Attention, x: torch.Tensor, cfg, positions=None,
+              causal: bool = True) -> torch.Tensor:
+    """Self-attention over the whole sequence (causal, or full for the
+    encoder)."""
+    if positions is None:
+        positions = _positions(x)
+    q, k, v = _qkv(p, x, cfg, positions)
+    return _sdpa(q, k, v, cfg, 0 if causal else None) @ p.wo
+
+
 def attention_prefill(p: Attention, x: torch.Tensor, cfg, positions=None):
     """Returns (out, (k, v)) for subsequent decode."""
-    b, s, _ = x.shape
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        positions = _positions(x)
     q, k, v = _qkv(p, x, cfg, positions)
     return _sdpa(q, k, v, cfg, 0) @ p.wo, (k, v)
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) int8 quantization: x (b, s, h, d) -> (q int8,
+    scale f16 (b, s, h)).  ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
+    xf = x.float()
+    scale = xf.abs().amax(-1).clamp(min=1e-6) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.float16)
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cfg, cache, cache_len):
     """One new token against a padded KV cache.
 
-    x: (b, 1, d); cache: (k, v) each (b, max_seq, nkv, hd); cache_len (b,)
-    valid entries.  The new token is written at position cache_len in place
-    (the reference returns an updated copy) and attends over positions
-    <= cache_len.  Returns (out, cache)."""
+    x: (b, 1, d); cache: (k, v) each (b, max_seq, nkv, hd), or with
+    ``cfg.kv_cache_dtype == "int8"`` (k_q, v_q, k_scale, v_scale): int8
+    payloads and per-(token, head) f16 scales (b, max_seq, nkv).  cache_len
+    (b,) valid entries.  The new token is written at position cache_len in
+    place (the reference returns an updated copy) and attends over
+    positions <= cache_len.  Returns (out, cache)."""
     b = x.shape[0]
     q, k_new, v_new = _qkv(p, x, cfg, cache_len[:, None])
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    k_cache, v_cache = cache
     rows = torch.arange(b, device=x.device)
-    k_cache[rows, cache_len] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, cache_len] = v_new[:, 0].to(v_cache.dtype)
+    if len(cache) == 4:
+        k_cache, v_cache, k_sc, v_sc = cache
+        kq, ks = _quantize_kv(k_new)
+        vq, vs = _quantize_kv(v_new)
+        k_cache[rows, cache_len] = kq[:, 0]
+        v_cache[rows, cache_len] = vq[:, 0]
+        k_sc[rows, cache_len] = ks[:, 0]
+        v_sc[rows, cache_len] = vs[:, 0]
+        k_eff = k_cache.float() * k_sc.float()[..., None]
+        v_eff = v_cache.float() * v_sc.float()[..., None]
+    else:
+        k_cache, v_cache = cache
+        k_cache[rows, cache_len] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[rows, cache_len] = v_new[:, 0].to(v_cache.dtype)
+        k_eff, v_eff = k_cache.float(), v_cache.float()
     skv = k_cache.shape[1]
     qg = q.reshape(b, 1, nkv, nh // nkv, hd)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k_cache.float()) * hd ** -0.5
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_eff) * hd ** -0.5
     valid = torch.arange(skv, device=x.device)[None, :] <= cache_len[:, None]
     scores = scores.masked_fill(~valid[:, None, None, None, :], -1e30)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_cache.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_eff)
     out = out.reshape(b, 1, nh * hd).to(x.dtype) @ p.wo
     return out, cache
+
+
+def attention_cross(p: Attention, x: torch.Tensor, memory: torch.Tensor,
+                    cfg) -> torch.Tensor:
+    """Cross-attention (decoder -> encoder memory): no mask, no RoPE, no
+    biases."""
+    b, s, _ = x.shape
+    sm = memory.shape[1]
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p.wq).reshape(b, s, nh, hd)
+    k = (memory @ p.wk).reshape(b, sm, nkv, hd)
+    v = (memory @ p.wv).reshape(b, sm, nkv, hd)
+    return _sdpa(q, k, v, cfg, None) @ p.wo
 
 
 def attention_decode_paged(p: Attention, x: torch.Tensor, cfg, cache,
@@ -217,9 +330,9 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, cfg, cache,
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg, gen: torch.Generator):
+    def __init__(self, cfg, gen: torch.Generator, d_ff: int | None = None):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         dt = _dtype(cfg)
         self.w_gate = _init(gen, (d, f), d ** -0.5, dt)
         self.w_up = _init(gen, (d, f), d ** -0.5, dt)

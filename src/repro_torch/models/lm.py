@@ -1,66 +1,140 @@
-"""The causal LM of the dense family: init, prefill and decode
-(``repro.models.lm``'s ``("scan", ATTN, n_layers)`` layout of dense models:
-``init_lm``, ``init_caches``, ``lm_prefill``, ``lm_decode``).
+"""The causal LM of every decoder-only family: init, prefill and decode
+(``repro.models.lm``'s ``grouped_layout``, ``init_lm``, ``init_caches``,
+``lm_prefill``, ``lm_decode``) for the dense, MoE, VLM and audio
+backbones (ATTN stacks), xLSTM and the Mamba2 hybrid.
 
-The reference scans one stacked parameter tree over the layers; here
-:class:`LM` holds a ``ModuleList`` of blocks and the layer loop is a
-Python loop.  Weights are seeded on the target device (a
+The reference scans stacked parameter trees over its layout's groups; here
+:class:`LM` holds a ``ModuleList`` of every layer's block in layer order
+(``blocks.<i>``) and, for the hybrid, the one shared attention block
+(``shared_attn``), and the layer loop is a Python loop over
+:func:`applications`.  Weights are seeded on the target device (a
 ``torch.Generator`` there, drawn in a fixed order with the reference's init
 scales); they are not the reference's numbers for the same seed, so tests
 carry the reference's weights across (``interop.lm_params_from_jax``).
 
-Decode takes either the contiguous caches of :func:`init_caches` /
-:func:`lm_prefill` (a list with one ``(k, v)`` pair, each ``(n_layers,
-batch, max_seq, kv_heads, head_dim)``, the layout of the reference's scan
-group) or a ``serve.paged_kv.PagedKVCache`` holding every layer, whose
-attention goes through the paged-attention kernel.
+The caches are the reference's tree: a list with one entry a group of
+:func:`grouped_layout`; a ``("scan", kind, count)`` group holds its kind's
+cache stacked over ``count`` (attention: ``(k, v)``, or the int8 ``(k_q,
+v_q, k_scale, v_scale)``; Mamba2 ``{"h", "conv"}``; mLSTM ``{"C", "n",
+"m"}``; sLSTM ``{"c", "n", "h", "m"}``), a ``("rep", segments, n_rep)``
+group a dict ``seg<j>`` of each segment's cache stacked over ``(n_rep,
+count)``.  Decode updates them in place.  A paged decode takes a
+:class:`PagedCaches` (or, for an ATTN stack, a bare
+``serve.paged_kv.PagedKVCache``): the attention applications' K/V in one
+paged cache, whose attention goes through the paged-attention kernel, and
+the recurrent states in the tree.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
 
 from ..kernels import resolve_device
 from ..serve.paged_kv import PagedKVCache
-from .blocks import Block
-from .config import ModelConfig
+from .blocks import ATTN_KINDS, Block, block_init_cache, layout
+from .config import BlockKind, ModelConfig
 from .layers import Embed, RMSNorm, embed, rmsnorm, unembed
 
+Group = tuple  # ("scan", kind, count) | ("rep", ((kind, count), ...), n_rep)
 
-def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense family without experts and a bf16/f32 KV
-    cache; everything else waits (ROADMAP.md)."""
-    if cfg.family != "dense" or cfg.moe or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}"
-            f"{' with experts' if cfg.moe else ''} is not ported yet; only "
-            f"dense models without experts run (ROADMAP.md, Queue 1)")
-    if cfg.kv_cache_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not ported yet; "
-            f"the KV cache is kept in the model's dtype (ROADMAP.md)")
+
+def grouped_layout(cfg: ModelConfig) -> list[Group]:
+    segs = layout(cfg)
+    if cfg.family == "ssm" and cfg.slstm_every:
+        k = cfg.slstm_every
+        n_rep = cfg.n_layers // k
+        groups: list[Group] = [("rep", ((BlockKind.MLSTM, k - 1),
+                                        (BlockKind.SLSTM, 1)), n_rep)]
+        tail = cfg.n_layers - n_rep * k
+        if tail:
+            groups.append(("scan", BlockKind.MLSTM, tail))
+        return groups
+    if cfg.family == "hybrid":
+        k = cfg.shared_attn_every
+        n_rep = cfg.n_layers // k
+        groups = [("rep", ((BlockKind.MAMBA2, k),
+                           (BlockKind.SHARED_ATTN, 1)), n_rep)]
+        tail = cfg.n_layers - n_rep * k
+        if tail:
+            groups.append(("scan", BlockKind.MAMBA2, tail))
+        return groups
+    return [("scan", k, c) for k, c in segs]
+
+
+@dataclasses.dataclass(frozen=True)
+class Application:
+    """One block application in layer order: its kind, its block
+    (``LM.blocks[block]``; None for the shared attention block), where its
+    cache sits in the tree (``caches[group]``, then ``[seg]`` in a rep
+    group, then ``[index]``), and for an attention kind its layer in a
+    paged cache (``attn``)."""
+    kind: BlockKind
+    block: int | None
+    group: int
+    seg: str | None
+    index: tuple
+    attn: int | None
+
+
+def applications(cfg: ModelConfig) -> list[Application]:
+    apps, block, attn = [], 0, 0
+    for g, grp in enumerate(grouped_layout(cfg)):
+        if grp[0] == "scan":
+            runs = [(None, (c,), grp[1]) for c in range(grp[2])]
+        else:
+            _, inner, n_rep = grp
+            runs = [(f"seg{j}", (r, c), kind) for r in range(n_rep)
+                    for j, (kind, count) in enumerate(inner)
+                    for c in range(count)]
+        for seg, index, kind in runs:
+            shared = kind == BlockKind.SHARED_ATTN
+            apps.append(Application(kind, None if shared else block, g, seg,
+                                    index, attn if kind in ATTN_KINDS
+                                    else None))
+            block += not shared
+            attn += kind in ATTN_KINDS
+    return apps
+
+
+def check_supported(cfg: ModelConfig, paged: bool) -> None:
+    """What the port cannot run: an int8 KV cache under the paged decode
+    (the paged-attention kernel takes float32 or bfloat16 pages, as the
+    TPU kernel does; nothing falls back to the contiguous decode)."""
+    if paged and cfg.kv_cache_dtype == "int8":
+        raise ValueError(f"{cfg.name}: kv_cache_dtype='int8' has no paged "
+                         f"decode (the paged-attention kernel takes float32 "
+                         f"or bfloat16 pages); serve it without --paged")
 
 
 class LM(nn.Module):
-    """Embeddings, ``n_layers`` :class:`Block` s and the final norm."""
+    """Embeddings, every layer's :class:`Block`, the hybrid's shared
+    attention block and the final norm."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0,
                  device: str | torch.device | None = None):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         self.cfg = cfg
+        self.apps = applications(cfg)
         self.embed = Embed(cfg, gen)
-        self.blocks = nn.ModuleList(Block(cfg, gen)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, gen, a.kind) for a in self.apps
+                                    if a.block is not None)
+        if cfg.shared_attn_every:
+            self.shared_attn = Block(cfg, gen, BlockKind.SHARED_ATTN)
         self.final_norm = RMSNorm(cfg.d_model, dev)
 
     @property
     def device(self) -> torch.device:
         return self.final_norm.scale.device
+
+    def block(self, app: Application) -> Block:
+        return self.shared_attn if app.block is None else \
+            self.blocks[app.block]
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0,
@@ -68,14 +142,49 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     return LM(cfg, seed, device)
 
 
+def _map(fn, tree):
+    """Apply ``fn`` to every tensor of one block's cache (a tuple or a
+    dict)."""
+    if isinstance(tree, dict):
+        return {k: fn(v) for k, v in tree.items()}
+    return tuple(fn(v) for v in tree)
+
+
+def _stack(caches: list, shape: tuple):
+    """Per-application caches of one group or segment, in layer order ->
+    one cache stacked over ``shape``."""
+    first = caches[0]
+    keys = first.keys() if isinstance(first, dict) else range(len(first))
+    out = {k: torch.stack([c[k] for c in caches]).reshape(
+        shape + first[k].shape) for k in keys}
+    return out if isinstance(first, dict) else tuple(out.values())
+
+
+def _slot(caches, app: Application):
+    """The stacked cache of ``app``'s group or segment."""
+    grp = caches[app.group]
+    return grp if app.seg is None else grp[app.seg]
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 device: str | torch.device | None = None) -> list:
-    check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     dev = resolve_device(device)
-    dt = getattr(torch, cfg.dtype)
-    return [(torch.zeros(shape, dtype=dt, device=dev),
-             torch.zeros(shape, dtype=dt, device=dev))]
+    caches = []
+    for grp in grouped_layout(cfg):
+        if grp[0] == "scan":
+            _, kind, count = grp
+            one = block_init_cache(cfg, kind, batch, max_seq, dev)
+            caches.append(_map(lambda t: t.expand((count,) + t.shape)
+                               .contiguous(), one))
+        else:
+            _, inner, n_rep = grp
+            gc = {}
+            for j, (kind, count) in enumerate(inner):
+                one = block_init_cache(cfg, kind, batch, max_seq, dev)
+                gc[f"seg{j}"] = _map(lambda t: t.expand(
+                    (n_rep, count) + t.shape).contiguous(), one)
+            caches.append(gc)
+    return caches
 
 
 def lm_prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
@@ -83,33 +192,93 @@ def lm_prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
     """Prefill a prompt; returns (last-token logits (b, 1, v) f32, caches
     padded to max_seq)."""
     x = embed(params.embed, tokens)
-    ks, vs = [], []
-    for blk in params.blocks:
-        x, (k, v) = blk.prefill(x, max_seq)
-        ks.append(k)
-        vs.append(v)
+    runs: dict = {}      # (group, seg) -> its caches in layer order
+    last: dict = {}      # (group, seg) -> its last application
+    for app in params.apps:
+        x, c = params.block(app).prefill(x, max_seq)
+        runs.setdefault((app.group, app.seg), []).append(c)
+        last[app.group, app.seg] = app
+    caches: list = [None] * len(grouped_layout(cfg))
+    for (g, seg), cs in runs.items():
+        # the last application's index + 1 is the stack's shape:
+        # (count,) in a scan group, (n_rep, count) in a rep group
+        stacked = _stack(cs, tuple(i + 1 for i in last[g, seg].index))
+        if seg is None:
+            caches[g] = stacked
+        else:
+            caches[g] = caches[g] or {}
+            caches[g][seg] = stacked
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return unembed(params.embed, x[:, -1:]), [(torch.stack(ks),
-                                                torch.stack(vs))]
+    return unembed(params.embed, x[:, -1:]), caches
+
+
+@dataclasses.dataclass
+class PagedCaches:
+    """The caches of a paged decode: every attention application's K/V in
+    one paged cache (``kv``; None for an attention-free model), and the
+    recurrent states in the reference's tree (``states``; None where an
+    attention cache would be)."""
+    kv: PagedKVCache | None
+    states: list
+
+
+def attention_kv(cfg: ModelConfig, caches: list):
+    """Every attention application's K and V from a contiguous cache tree,
+    stacked in layer order: (k, v) each (n_attn, batch, seq, kv_heads,
+    head_dim); None for an attention-free model."""
+    attn = [a for a in applications(cfg) if a.attn is not None]
+    if not attn:
+        return None
+    return tuple(torch.stack([_slot(caches, a)[i][a.index] for a in attn])
+                 for i in (0, 1))
+
+
+def recurrent_states(cfg: ModelConfig, caches: list) -> list:
+    """The cache tree with every attention cache replaced by None: what a
+    paged decode keeps beside its paged cache."""
+    out = []
+    for grp, c in zip(grouped_layout(cfg), caches):
+        if grp[0] == "scan":
+            out.append(None if grp[1] in ATTN_KINDS else c)
+        else:
+            out.append({f"seg{j}": None if kind in ATTN_KINDS
+                        else c[f"seg{j}"]
+                        for j, (kind, _) in enumerate(grp[1])})
+    return out
 
 
 def lm_decode(params: LM, token: torch.Tensor, caches,
               cache_len: torch.Tensor | None, cfg: ModelConfig):
     """One decode step.  token (b, 1) ids; cache_len (b,) valid lengths of
-    contiguous caches, which are updated in place.  A paged cache keeps its
-    own lengths (pass cache_len=None) and takes the new token's K/V.
-    Returns (logits (b, 1, v) f32, caches)."""
-    x = embed(params.embed, token)
+    contiguous caches, which are updated in place.  A paged decode
+    (:class:`PagedCaches` or a ``PagedKVCache``) keeps its own lengths
+    (pass cache_len=None): the attention applications' new K/V go into its
+    pages, the recurrent states are updated in place.  Returns (logits
+    (b, 1, v) f32, caches)."""
     if isinstance(caches, PagedKVCache):
+        kv, tree = caches, None
+    elif isinstance(caches, PagedCaches):
+        kv, tree = caches.kv, caches.states
+    else:
+        kv, tree = None, caches
+    paged = tree is not caches
+    if paged:
+        check_supported(cfg, True)
         if cache_len is not None:
             raise ValueError("a paged cache keeps its own lengths; pass "
                              "cache_len=None")
-        step = caches.append_step()
-        for layer, blk in enumerate(params.blocks):
-            x = blk.decode_paged(x, caches, layer, step)
-    else:
-        (k, v), = caches
-        for layer, blk in enumerate(params.blocks):
-            x, _ = blk.decode(x, (k[layer], v[layer]), cache_len)
+    step = kv.append_step() if kv is not None else None
+    x = embed(params.embed, token)
+    for app in params.apps:
+        blk = params.block(app)
+        if paged and app.kind in ATTN_KINDS:
+            x = blk.decode_paged(x, kv, app.attn, step)
+            continue
+        stacked = _slot(tree, app)
+        cache = _map(lambda t: t[app.index], stacked)
+        x, new = blk.decode(x, cache, cache_len)
+        if app.kind not in ATTN_KINDS:     # attention writes in place
+            for k, v in new.items():
+                stacked[k][app.index] = v
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return unembed(params.embed, x), caches

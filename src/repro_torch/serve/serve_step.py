@@ -5,7 +5,7 @@
 batch against its KV cache, contiguous or paged).  ``prefill_step``
 processes the full prompt.  Sampling is greedy, or at a temperature through
 an explicit ``torch.Generator``; the batcher groups requests to the
-model's batch size.  ``serve_step_encdec`` is not ported (ROADMAP.md).
+model's batch size.  ``serve_step_encdec`` is the encoder-decoder's step.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Any
 
 import torch
 
-from ..models import ModelConfig, lm_decode, lm_prefill
+from ..models import ModelConfig, encdec_decode, lm_decode, lm_prefill
 
 
 def prefill_step(params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -37,6 +37,15 @@ def serve_step(params, token: torch.Tensor, caches,
     else:
         nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
     return nxt, caches, logits
+
+
+def serve_step_encdec(params, token: torch.Tensor, memory: torch.Tensor,
+                      caches, cache_len: torch.Tensor, cfg: ModelConfig):
+    """One greedy decoder step of the encoder-decoder; returns (next token
+    ids (b, 1) int64, caches, logits)."""
+    logits, caches = encdec_decode(params, token, memory, caches, cache_len,
+                                   cfg)
+    return torch.argmax(logits[:, -1], dim=-1)[:, None], caches, logits
 
 
 @dataclasses.dataclass
