@@ -10,7 +10,9 @@ of one process a rank from saved plans, and both served by the plan-cache
 daemon) and serving qwen2-1.5b (and, briefly, stablelm-3b and every other
 model family: MoE, the Mamba2 hybrid, xLSTM, the encoder-decoder, the
 int8 KV cache and a prompt of 8192 tokens) with the paged decode; and
-three paths without a kernel of their own: the n-party
+four paths without a kernel of their own: training (every family's
+reduced config card against CPU, qwen2-1.5b at full width, checkpoints,
+faults and the offload planner over its gradient), the n-party
 Shamir jobs on the card, the §8.2 scenario simulator (``bench``, host
 work) and secure aggregation (its sums on the card).
 TF32 stays off for the whole run: the plain versions' float32 products run
@@ -251,6 +253,32 @@ in full float32.  Phases, each raising on failure:
                  (layer 0 held to the dense formula within 1e-4 in f32),
                  then 8 paged steps; ms a decode step, prefill tokens/s,
                  peak memory and paged calls of each;
+    train parity  one train step (2 microbatches) of each family's
+                 reduced config in f32 on the card and on the CPU from one
+                 seeded state and one batch_for_step batch: qwen2-1.5b,
+                 deepseek-moe-16b, zamba2-7b, xlstm-1.3b and
+                 seamless-m4t-medium; loss, grad_norm, lr, mu and nu
+                 within relative 1e-4 a leaf, the parameters too but for
+                 entries whose gradient is at rounding noise (under 1e-4
+                 of the largest RMS), held within 2 lr;
+    train        qwen2-1.5b at its published widths in bf16, seeded on the
+                 card: 8 steps of train_loop at the reference launcher's
+                 defaults (batch 8 x seq 128, 2 microbatches, remat, no
+                 checkpoint), every loss and grad_norm finite, the
+                 parameters moved, the optimizer at step 8; ms a step,
+                 tokens/s, peak memory against the 28.4 GB of state
+                 reckoned, the share of the bf16 dense peak; one step
+                 timed in halves (forward + backward, optimizer) and one
+                 under torch.profiler; then the reduced qwen2 loop on the
+                 card with checkpoints: 8 steps straight against 4 +
+                 resume + 4 (rtol 1e-5, atol 1e-6) and a NaN at step 5 (one
+                 rollback, final step 8);
+    offload      fx_trace (fake mode) of the gradient of lm_loss for
+                 full-width qwen2-1.5b at 4 x 128 without remat, its
+                 contract checked; plan_offload unbounded and at half the
+                 peak (both feasible); est_overhead at the pinned copy rate
+                 measured here; the same gradient on the card, its
+                 allocator peak beside peak_unbounded;
 24. attn record  a wrapper call timed at the main path's lengths and at the
                  32768-token batch: device time summed over the kernels it
                  launches (split and combine also apart, profiler), the
@@ -326,6 +354,17 @@ from repro_torch.serve.serve_step import (Request, serve_step,  # noqa: E402
                                           serve_step_encdec)
 from repro_torch.workloads import fast_trace  # noqa: E402
 from repro_torch.workloads import get as get_workload  # noqa: E402
+from repro_torch.core.offload import (fx_trace, loss_grad,  # noqa: E402
+                                      plan_offload)
+from repro_torch.data.pipeline import DataConfig, batch_for_step  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
+from repro_torch.models import lm_loss  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train.fault import FaultConfig  # noqa: E402
+from repro_torch.train.optimizer import OptConfig, adamw_update  # noqa: E402
+from repro_torch.train.train_step import (TrainConfig,  # noqa: E402
+                                          accumulate_grads, make_train_state,
+                                          train_step)
 
 #: H100 SXM peaks: HBM3 bandwidth (NVIDIA data sheet), and 32-bit
 #: three-input logic operations (LOP3) per second: 64 per SM per clock (CUDA
@@ -5245,6 +5284,400 @@ def phase_serve_profile(dev, model) -> dict:
         top.append([e.key[:60], _dev_us(e) / 1e3, e.count])
     return {"steps": 8, "wall_ms": wall_ms, "busy_ms": busy_ms, "top": top}
 
+# ---------------------------------------------------------------------------
+# training: train parity, train, offload
+# ---------------------------------------------------------------------------
+
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), at 700 W
+BF16_FLOPS_PER_S = 989e12
+#: the reduced configs trained card against CPU (train parity)
+TRAIN_PARITY = ["qwen2-1.5b", "deepseek-moe-16b", "zamba2-7b", "xlstm-1.3b",
+                "seamless-m4t-medium"]
+#: train parity's optimizer and the reduced loops' (tests/test_train_fault.py)
+PARITY_OPT = OptConfig(peak_lr=1e-3, warmup_steps=2, stable_steps=2,
+                       decay_steps=2)
+REDUCED_TCFG = TrainConfig(microbatches=2, opt=OptConfig(
+    peak_lr=1e-3, warmup_steps=2, stable_steps=10, decay_steps=4))
+#: an entry whose gradient RMS is under this share of the largest moves by
+#: a noise-driven amount under Adam (tests/test_torch_train_fault.py)
+ADAM_NOISE = 1e-4
+#: the full-width run: the reference launcher's defaults (batch 8 x seq
+#: 128, 2 microbatches, its schedule for 8 steps)
+TRAIN_STEPS = 8
+TRAIN_DATA = DataConfig(seq_len=128, global_batch=8,
+                        vocab_size=QWEN2.vocab_size)
+TRAIN_TCFG = TrainConfig(microbatches=2, opt=OptConfig(
+    peak_lr=1e-3, warmup_steps=5, stable_steps=max(TRAIN_STEPS - 10, 5),
+    decay_steps=5))
+#: the state reckoned from the config: bf16 params and grads, the f32
+#: accumulator, f32 mu and nu
+TRAIN_STATE_BYTES = 28.4e9
+#: the pinned host<->device copy measured for est_overhead
+COPY_BYTES = 256 << 20
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)
+
+
+def _adam_params_rel(want: dict, got: dict, nu: dict, lr: float
+                     ) -> tuple[float, int]:
+    """The worst relative error a leaf of the parameters on the entries
+    whose gradient RMS (``want``'s sqrt(nu)) is at least ADAM_NOISE of the
+    largest, and the count of the other entries, which must be within
+    2 * lr (two Adam updates differ by at most that much)."""
+    top = max(float(v.sqrt().max()) for v in nu.values())
+    worst, noisy = 0.0, 0
+    for name, w in want.items():
+        w = w.detach().float().cpu()
+        d = (w - got[name].detach().float().cpu()).abs()
+        well = nu[name].cpu().sqrt() >= ADAM_NOISE * top
+        if well.any():
+            worst = max(worst, float(d[well].max() / w.abs().max()))
+        noisy += int((~well).sum())
+        if (~well).any() and float(d[~well].max()) > 2 * lr:
+            raise AssertionError(f"train parity: {name} moved "
+                                 f"{float(d[~well].max())} > 2 lr")
+    return worst, noisy
+
+
+def _train_parity(arch: str, dev) -> dict:
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    cpu_p, cpu_o = make_train_state(cfg, 0, "cpu")
+    card_p, card_o = copy.deepcopy(cpu_p).to(dev), _to(cpu_o, dev)
+    data = DataConfig(seq_len=17, global_batch=4, vocab_size=cfg.vocab_size,
+                      frames_dim=cfg.d_model if cfg.is_encdec else 0)
+    host = batch_for_step(data, 0)
+    tcfg = TrainConfig(microbatches=2, opt=PARITY_OPT)
+    runs = {}
+    for name, p, o in (("cpu", cpu_p, cpu_o), ("card", card_p, card_o)):
+        batch = {k: torch.as_tensor(v, device=p.embed.embed.device)
+                 for k, v in host.items()}
+        _, _, m = train_step(p, o, batch, cfg, tcfg)
+        runs[name] = {k: float(v) for k, v in m.items()}
+    out = {k: _rel(torch.tensor(runs["card"][k]), torch.tensor(runs["cpu"][k]))
+           for k in ("loss", "grad_norm", "lr")}
+    for part in ("mu", "nu"):
+        out[part] = max(_rel(card_o[part][k], v)
+                        for k, v in cpu_o[part].items())
+    out["params"], out["noise_entries"] = _adam_params_rel(
+        dict(cpu_p.named_parameters()), dict(card_p.named_parameters()),
+        cpu_o["nu"], runs["cpu"]["lr"])
+    out["loss_value"] = runs["card"]["loss"]
+    if int(card_o["step"]) != 1 or max(
+            v for k, v in out.items() if k in
+            ("loss", "grad_norm", "lr", "mu", "nu", "params")) >= PARITY_REL:
+        raise AssertionError(f"train parity {arch}: {out}")
+    return out
+
+
+def phase_train_parity(dev) -> dict:
+    """One train step (2 microbatches, one batch_for_step batch) of each
+    family's reduced config in f32 on the card and on the CPU from one
+    seeded state: loss, grad_norm, lr, mu and nu within relative 1e-4 a
+    leaf; the parameters too, but for entries whose gradient is at
+    rounding noise (under ADAM_NOISE of the largest RMS), which must be
+    within 2 lr."""
+    out = {}
+    for arch in TRAIN_PARITY:
+        out[arch] = r = _train_parity(arch, dev)
+        log(f"train parity: reduced {arch} f32, one step card == CPU: loss "
+            f"{r['loss']:.3e}, grad_norm {r['grad_norm']:.3e}, lr "
+            f"{r['lr']:.3e}, mu {r['mu']:.3e}, nu {r['nu']:.3e}, params "
+            f"{r['params']:.3e} ({r['noise_entries']} noise-level entries "
+            f"within 2 lr)")
+    return out
+
+
+def _n_params(model) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def _step_flops(model, cfg, data: DataConfig) -> float:
+    """The model FLOPs of one train step: 6 x (the parameters of every
+    product: all but the input embedding's gather) x the positions
+    trained, plus attention's two products over the whole (s, s) square
+    as the port computes them, 3x for forward and backward; remat's
+    recomputation not counted."""
+    pos = data.global_batch * (data.seq_len - 1)
+    dense = _n_params(model) - model.embed.embed.numel()
+    attn = 12 * cfg.n_layers * data.global_batch * (data.seq_len - 1) ** 2 \
+        * cfg.n_heads * cfg.head_dim
+    return 6.0 * dense * pos + attn
+
+
+def _train_profile(params, opt, dev, by_op: bool) -> dict:
+    """One step timed in its two halves (CUDA events: the microbatches'
+    forwards and backwards, then the optimizer), and one under
+    torch.profiler: kernels, the busy share and device time by kernel;
+    with ``by_op`` (``tools/train_phase.py``: the host's events take
+    seconds to gather) one more step traced with the host's ops too,
+    each ATen op's own kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+    host = batch_for_step(TRAIN_DATA, TRAIN_STEPS)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    grads, _ = accumulate_grads(params, batch, QWEN2, TRAIN_TCFG)
+    ev[1].record()
+    adamw_update(TRAIN_TCFG.opt, params, grads, opt)
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+    fb_ms, opt_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = train_step(params, opt, batch, QWEN2, TRAIN_TCFG)
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = sorted(prof.key_averages(), key=_dev_us, reverse=True)
+    busy_ms = sum(_dev_us(e) for e in evs) / 1e3
+    kernels = sum(e.count for e in evs if _dev_us(e))
+    top = [[e.key[:60], _dev_us(e) / 1e3, e.count] for e in evs[:8]]
+    if by_op:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, m = train_step(params, opt, batch, QWEN2, TRAIN_TCFG)
+            float(m["loss"])
+        ops = sorted((e for e in prof.key_averages()
+                      if e.key.startswith("aten::")), key=_dev_us,
+                     reverse=True)
+        top = [[e.key, _dev_us(e) / 1e3, e.count] for e in ops[:12]]
+    log(f"train profile: forward + backward {fb_ms:.2f} ms, optimizer "
+        f"{opt_ms:.2f} ms (events); one step {wall_ms:.1f} ms under the "
+        f"profiler, {kernels} kernels, device busy {busy_ms:.1f} ms "
+        f"({busy_ms / wall_ms:.3f}; idle share {1 - busy_ms / wall_ms:.3f});"
+        f" device time by " + ("ATen op (its own kernels'):" if by_op
+                               else "kernel:"))
+    for key, ms, count in top:
+        log(f"  {ms:10.3f} ms  {count:8d}x  {key}")
+    return {"fwd_bwd_ms": fb_ms, "opt_ms": opt_ms, "wall_ms": wall_ms,
+            "busy_ms": busy_ms, "kernels": kernels, "top": top}
+
+
+def _train_full(dev, smi: str, by_op: bool) -> dict:
+    """qwen2-1.5b at its published widths in bf16, seeded on the card: 8
+    steps of train_loop (no checkpoint), then the profiled steps."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = make_train_state(QWEN2, 0, dev)
+    watch = {k: params.get_parameter(k).detach().clone() for k in
+             ("blocks.0.attn.wq", "blocks.27.mlp.w_down", "final_norm.scale",
+              "embed.lm_head")}
+    report = train_loop(QWEN2, TRAIN_TCFG, TRAIN_DATA, FaultConfig(),
+                        TRAIN_STEPS, ckpt_dir=None, log_every=TRAIN_STEPS,
+                        device=dev, state=(params, opt))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    hist = report.history
+    bad = [h for h in hist if not (np.isfinite(h["loss"])
+                                   and np.isfinite(h["grad_norm"]))]
+    changed = [k for k, v in watch.items()
+               if not torch.equal(v, params.get_parameter(k))]
+    if bad or len(hist) != TRAIN_STEPS or int(opt["step"]) != TRAIN_STEPS \
+            or report.final_step != TRAIN_STEPS or len(changed) != len(watch):
+        raise AssertionError(f"train: bad steps {bad}, {len(hist)} steps, "
+                             f"opt step {int(opt['step'])}, changed "
+                             f"{changed}")
+    step_s = statistics.median(h["seconds"] for h in hist[1:])
+    tokens = TRAIN_DATA.global_batch * TRAIN_DATA.seq_len
+    flops = _step_flops(params, QWEN2, TRAIN_DATA)
+    out = {"params": _n_params(params), "steps": TRAIN_STEPS,
+           "first_step_s": hist[0]["seconds"], "ms_per_step": step_s * 1e3,
+           "tokens_per_s": tokens / step_s, "losses": [h["loss"] for h in
+                                                       hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "peak_bytes": peak, "state_bytes_reckoned": TRAIN_STATE_BYTES,
+           "step_flops": flops,
+           "bf16_peak_share": flops / (step_s * BF16_FLOPS_PER_S),
+           "card": smi}
+    log(f"train: {QWEN2.name} at full width ({out['params']:,} parameters, "
+        f"bf16), batch {TRAIN_DATA.global_batch} x {TRAIN_DATA.seq_len}, "
+        f"2 microbatches: {TRAIN_STEPS} steps, loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f}, {out['ms_per_step']:.2f} ms a step "
+        f"(median of steps 2-{TRAIN_STEPS}; first {hist[0]['seconds']:.2f} "
+        f"s), {out['tokens_per_s']:.0f} tokens/s, peak {peak:,} B against "
+        f"{TRAIN_STATE_BYTES:.3g} B of state reckoned, "
+        f"{out['bf16_peak_share']:.4f} of the bf16 dense peak "
+        f"({flops:.4g} FLOPs a step; {smi})")
+    out["profile"] = _train_profile(params, opt, dev, by_op)
+    del params, opt, watch
+    _free()
+    return out
+
+
+def _state_close(a, b, what: str) -> None:
+    for (ka, ta), (kb, tb) in zip(ckpt._flat(a).items(),
+                                  ckpt._flat(b).items()):
+        if ka != kb:
+            raise AssertionError(f"{what}: {ka} != {kb}")
+        np.testing.assert_allclose(ta.detach().float().cpu().numpy(),
+                                   tb.detach().float().cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=what + ka)
+
+
+def _train_faults(dev) -> dict:
+    """The reduced qwen2 loop on the card with checkpoints: 8 steps
+    straight against 4 + resume + 4 (tests/test_train_fault.py's
+    tolerance), and a NaN injected at step 5."""
+    import tempfile
+    cfg = reduced_config("qwen2-1.5b")
+    data = DataConfig(seq_len=32, global_batch=4, vocab_size=cfg.vocab_size)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as tmp:
+        d1, d2, d3 = (os.path.join(tmp, x) for x in "abc")
+        t0 = time.perf_counter()
+        fc = FaultConfig(checkpoint_every=4)
+        r1 = train_loop(cfg, REDUCED_TCFG, data, fc, 8, ckpt_dir=d1,
+                        log_every=100, device=dev)
+        train_loop(cfg, REDUCED_TCFG, data, fc, 4, ckpt_dir=d2,
+                   log_every=100, device=dev)
+        r2 = train_loop(cfg, REDUCED_TCFG, data, fc, 8, ckpt_dir=d2,
+                        log_every=100, device=dev)
+        states = []
+        for d in (d1, d2):
+            p, o = make_train_state(cfg, 0, dev)
+            ckpt.restore(d, 8, p, o)
+            states.append((p, o))
+        _state_close(states[0][0], states[1][0], "resume params ")
+        _state_close(states[0][1], states[1][1], "resume opt ")
+        if r1.final_step != 8 or r2.final_step != 8:
+            raise AssertionError(f"resume: final steps {r1.final_step}, "
+                                 f"{r2.final_step}")
+        out["resume_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = train_loop(cfg, REDUCED_TCFG, data,
+                       FaultConfig(checkpoint_every=3, max_rollbacks=2), 8,
+                       ckpt_dir=d3, inject_nan_at=5, log_every=100,
+                       device=dev)
+        if r.rollbacks != 1 or r.final_step != 8:
+            raise AssertionError(f"nan rollback: {r}")
+        out.update(nan_s=time.perf_counter() - t0, rollbacks=r.rollbacks,
+                   final_step=r.final_step, checkpoints=r.checkpoints,
+                   step_ms=statistics.median(h["seconds"] for h in
+                                             r1.history) * 1e3)
+    log(f"train faults: reduced {cfg.name} on the card, 8 steps straight == "
+        f"4 + resume + 4 (rtol 1e-5, atol 1e-6; {out['resume_s']:.2f} s), "
+        f"NaN at step 5: {out['rollbacks']} rollback, final step "
+        f"{out['final_step']} ({out['nan_s']:.2f} s); "
+        f"{out['step_ms']:.2f} ms a reduced step")
+    return out
+
+
+def phase_train(dev, smi: str, by_op: bool = False) -> dict:
+    return {"full": _train_full(dev, smi, by_op),
+            "faults": _train_faults(dev)}
+
+
+def _trace_ok(tr) -> None:
+    """fx_trace's contract: every buffer read is an input (never written)
+    or was written by an earlier instruction; every write a new buffer."""
+    written = {b for w in tr.writes for b in w}
+    seen = set()
+    for i, (r, w) in enumerate(zip(tr.reads, tr.writes)):
+        bad = [b for b in r if b in written and b not in seen]
+        if bad or seen.intersection(w):
+            raise AssertionError(f"offload trace: instruction {i} "
+                                 f"({tr.names[i]}) reads {bad}")
+        seen.update(w)
+    ids = {b for x in tr.reads + tr.writes for b in x}
+    if not ids <= set(range(len(tr.sizes))) or min(tr.sizes) < 0:
+        raise AssertionError("offload trace: buffer ids or sizes out of "
+                             "range")
+
+
+def _copy_rate(dev) -> dict:
+    """Pinned host <-> device copies of COPY_BYTES, CUDA events, the
+    median of five each way."""
+    host = torch.empty(COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(COPY_BYTES, dtype=torch.uint8, device=dev)
+    rates = {}
+    for name, dst, src in (("h2d", card, host), ("d2h", host, card)):
+        ms = []
+        for _ in range(6):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        rates[name] = COPY_BYTES / (statistics.median(ms[1:]) / 1e3)
+    del host, card
+    return rates
+
+
+def phase_offload(dev, model) -> dict:
+    """fx_trace (fake mode) of the gradient of lm_loss for full-width
+    qwen2-1.5b (``model``, the serve phases' seeded bf16 weights) at one
+    microbatch of the train run (4 x 128) without remat; plan_offload
+    unbounded and at half the peak; est_overhead at the pinned copy rate
+    measured here; then the same gradient computed for real on the card,
+    its allocator peak beside the plan's peak_unbounded (reported, not
+    gated)."""
+    cfg = QWEN2
+    toks = torch.as_tensor(batch_for_step(TRAIN_DATA, 0)["tokens"][:4],
+                           device=dev)
+    fn, params = loss_grad(model, lambda m, t: lm_loss(m, t, cfg,
+                                                       remat=False)[0])
+    t0 = time.perf_counter()
+    tr = fx_trace(fn, params, toks)
+    trace_s = time.perf_counter() - t0
+    _trace_ok(tr)
+    t0 = time.perf_counter()
+    unb = plan_offload(tr, 1 << 40)
+    half = plan_offload(tr, unb.peak_unbounded // 2)
+    plan_s = time.perf_counter() - t0
+    if not (unb.feasible and half.feasible) or unb.bytes_out:
+        raise AssertionError(f"offload: unbounded feasible {unb.feasible} "
+                             f"(out {unb.bytes_out}), half "
+                             f"{half.feasible}")
+    rates = _copy_rate(dev)
+    bw = min(rates.values())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grads = fn(params, toks)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    real_peak = torch.cuda.max_memory_allocated() - base + param_bytes + \
+        toks.numel() * toks.element_size()
+    if sorted(grads) != sorted(params) or not all(
+            torch.isfinite(g).all() for g in grads.values()):
+        raise AssertionError("offload: the real gradient is not finite")
+    del grads
+    _free()
+    out = {"nodes": len(tr.reads), "buffers": len(tr.sizes),
+           "trace_s": trace_s, "plan_s": plan_s,
+           "peak_unbounded": unb.peak_unbounded,
+           "half": {"budget": half.budget_bytes, "bytes_out": half.bytes_out,
+                    "bytes_in": half.bytes_in, "offloads": half.n_offloads,
+                    "reloads": half.n_reloads},
+           "copy_bytes_per_s": rates, "est_overhead_s": half.est_overhead(bw),
+           "est_overhead_s_at_50e9": half.est_overhead(),
+           "param_bytes": param_bytes,
+           "real_grad_s": grad_s, "real_peak_bytes": real_peak,
+           "real_over_plan": real_peak / unb.peak_unbounded}
+    log(f"offload: fx_trace of {cfg.name}'s lm_loss gradient at 4 x 128, no "
+        f"remat: {out['nodes']} instructions, {out['buffers']} buffers in "
+        f"{trace_s:.2f} s; plans in {plan_s:.2f} s: peak_unbounded "
+        f"{unb.peak_unbounded:,} B; at half: out {half.bytes_out:,} / in "
+        f"{half.bytes_in:,} B, {half.n_offloads} offloads / "
+        f"{half.n_reloads} reloads; pinned copies h2d "
+        f"{rates['h2d'] / 1e9:.2f} d2h {rates['d2h'] / 1e9:.2f} GB/s -> "
+        f"est_overhead {out['est_overhead_s']:.4f} s "
+        f"({out['est_overhead_s_at_50e9']:.4f} s at the reference's 50 GB/s);"
+        f" the real gradient {grad_s:.3f} s, allocator peak {real_peak:,} B "
+        f"(params and tokens included) = {out['real_over_plan']:.3f} of "
+        f"peak_unbounded")
+    return out
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -5298,6 +5731,9 @@ def main() -> None:
     stablelm = timed("serve stablelm", phase_serve_stablelm, dev)
     families, family_paths = timed("serve families", phase_serve_families,
                                    dev, model)
+    train_parity = timed("train parity", phase_train_parity, dev)
+    train = timed("train", phase_train, dev, smi)
+    offload = timed("offload", phase_offload, dev, model)
     # after the serve phases, which so run in the process as they did
     # before the baselines existed
     with base_pool:
@@ -5345,6 +5781,7 @@ def main() -> None:
         "serve_parity": serve_parity, "attn": attn_timing,
         "serve_stablelm": stablelm, "serve_families": families,
         "families_parity": families_parity,
+        "train_parity": train_parity, "train": train, "offload": offload,
         "serve_profile": serve_profiled, "baselines": baselines,
         "gc_workloads": gc_workloads, "workers": workers, "fleet": fleet,
         "streaming": streaming, "shamir": shamir,

@@ -6,8 +6,10 @@ header of the program's fields, so neither side imports the other: the
 JAX package's ``encode_chunk(program.instrs)`` produces ``rec``.
 
 A CKKS context crosses as its keys, NumPy arrays (``ckks_context_from_keys``),
-and a language model as its parameter tree, NumPy arrays
-(``lm_params_from_jax``, ``encdec_params_from_jax``).  The garbler's state
+a language model as its parameter tree, NumPy arrays
+(``lm_params_from_jax``, ``encdec_params_from_jax``; a gradient tree
+crosses the same way), and a training run's optimizer state as its moments
+and step (``opt_state_from_jax``).  The garbler's state
 needs no converter: R and every fresh label come from
 ``numpy.random.default_rng(seed)`` in the same order in both packages, as
 do a CKKS context's keys when both are built from one seed.
@@ -148,3 +150,14 @@ def encdec_params_from_jax(params: dict, cfg: ModelConfig) -> dict:
         for i in range(n):
             _unstack(params[part], (i,), f"{part}.{i}.", out)
     return out
+
+
+def opt_state_from_jax(opt_state: dict, cfg: ModelConfig) -> dict:
+    """The JAX package's ``init_opt_state`` / ``adamw_update`` state
+    (``{"mu", "nu", "step"}``, leaves as arrays) -> the port's
+    (``train.optimizer.init_opt_state``'s layout): each moment tree through
+    the model's parameter carrier, bit for bit, and the int32 step."""
+    conv = encdec_params_from_jax if cfg.is_encdec else lm_params_from_jax
+    return {"mu": conv(opt_state["mu"], cfg),
+            "nu": conv(opt_state["nu"], cfg),
+            "step": _tensor(opt_state["step"]).to(torch.int32)}

@@ -1,6 +1,7 @@
 """Block assembly and the layer layout: one residual block per layer kind
 (the port's copy of ``repro.models.blocks``: ``init_block``,
-``block_init_cache``, ``block_prefill``, ``block_decode``, ``layout``).
+``block_train``, ``block_init_cache``, ``block_prefill``, ``block_decode``,
+``layout``).
 
 Layouts:
   dense/moe/vlm/audio : [ATTN x n_layers]
@@ -12,7 +13,10 @@ Layouts:
 
 The recurrent kinds prefill with their parallel form and rebuild the state
 decode starts from with the reference's sequential replay: one decode call
-a prompt token, which is exact and costs a decode step a token.
+a prompt token, which is exact and costs a decode step a token.  Training
+(``Block.forward``, the reference's ``block_train``; a method named
+``train`` would shadow ``nn.Module.train``, which ``eval()`` calls) runs
+the parallel forms only.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from torch import nn
 
 from .config import BlockKind, ModelConfig
 from .layers import (MLP, Attention, RMSNorm, _dtype, _quantize_kv,
-                     attention_decode, attention_decode_paged,
+                     attention, attention_decode, attention_decode_paged,
                      attention_prefill, mlp, rmsnorm)
 from .mamba2 import Mamba2, mamba2_block, mamba2_decode, mamba2_init_state
 from .moe import MoE, moe_mlp
@@ -75,6 +79,23 @@ class Block(nn.Module):
         if self.kind == BlockKind.MLSTM:
             return self.mlstm, mlstm_block, mlstm_decode, mlstm_init_state
         return self.slstm, slstm_block, slstm_decode, slstm_init_state
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training forward (``block_train``): returns (x, aux loss),
+        the aux loss the MoE's load-balancing term (0 for every other
+        block).  The recurrent kinds run their parallel forms."""
+        cfg = self.cfg
+        h = rmsnorm(self.ln1, x, cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.kind in ATTN_KINDS:
+            x = x + attention(self.attn, h, cfg)
+            if hasattr(self, "moe"):
+                out, aux = moe_mlp(self.moe,
+                                   rmsnorm(self.ln2, x, cfg.norm_eps), cfg)
+                return x + out, aux
+            return self._mlp(x), aux
+        mod, block, _, _ = self._mixer()
+        return x + block(mod, h, cfg), aux
 
     def prefill(self, x: torch.Tensor, max_seq: int):
         """Returns (x, cache): for the attention kinds (k, v), or the int8

@@ -1,7 +1,7 @@
-"""Encoder-decoder model (the seamless-m4t backbone), its serving half: the
-port's copy of ``repro.models.encdec``'s ``init_encdec``, ``encode``,
-``_dec_block``, ``encdec_prefill``, ``encdec_init_caches`` and
-``encdec_decode``.
+"""Encoder-decoder model (the seamless-m4t backbone): the port's copy of
+``repro.models.encdec``'s ``init_encdec``, ``encode``, ``_dec_block``,
+``encdec_forward``, ``encdec_loss``, ``encdec_prefill``,
+``encdec_init_caches`` and ``encdec_decode``.
 
 The audio frontend is a stub, as in the reference: the encoder consumes
 precomputed frame embeddings (batch, frames, d_model); the decoder is a
@@ -9,6 +9,12 @@ causal transformer with cross-attention into the encoder memory.  A decode
 step recomputes the memory's K/V (``attention_cross``) at every layer, as
 the reference does; its self-attention cache is ``(k, v)``, each
 (n_layers, batch, max_seq, kv_heads, head_dim), updated in place.
+Training is teacher-forced cross entropy, every encoder and decoder layer
+checkpointed under ``remat``.
+
+The frames enter in the model's dtype.  The reference promotes its bf16
+encoder to float32 when handed float32 frames (the data pipeline's); the
+port casts the frames instead, so a bf16 model's encoder runs in bf16.
 """
 
 from __future__ import annotations
@@ -19,8 +25,9 @@ from torch import nn
 from ..kernels import resolve_device
 from .config import ModelConfig
 from .layers import (MLP, Attention, Embed, RMSNorm, _dtype, attention,
-                     attention_cross, attention_decode, embed, mlp, rmsnorm,
-                     unembed)
+                     attention_cross, attention_decode, embed, mlp,
+                     remat_call, rmsnorm, unembed)
+from .lm import next_token_nll
 
 
 class EncLayer(nn.Module):
@@ -46,6 +53,9 @@ class DecLayer(nn.Module):
 class EncDec(nn.Module):
     """``init_encdec``: ``encoder_layers`` encoder layers, ``n_layers``
     decoder layers, the embeddings and the two final norms."""
+
+    #: the parameters the reference stacks over a leading layer axis
+    stacked_prefixes = ("enc.", "dec.")
 
     def __init__(self, cfg: ModelConfig, seed: int = 0,
                  device: str | torch.device | None = None):
@@ -74,15 +84,21 @@ def init_encdec(cfg: ModelConfig, seed: int = 0,
     return EncDec(cfg, seed, device)
 
 
-def encode(params: EncDec, frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+def _enc_block(p: EncLayer, h: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    h = h + attention(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cfg,
+                      causal=False)
+    return h + mlp(p.mlp, rmsnorm(p.ln2, h, cfg.norm_eps))
+
+
+def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig,
+           remat: bool = True) -> torch.Tensor:
     """frames: (b, s, d) precomputed frame embeddings (the frontend
-    stub) -> the encoder memory (b, s, d)."""
-    h = frames
+    stub) -> the encoder memory (b, s, d).  ``remat`` checkpoints each
+    layer when autograd records."""
+    h = frames.to(_dtype(cfg))
     for p in params.enc:
-        h = h + attention(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cfg,
-                          causal=False)
-        h = h + mlp(p.mlp, rmsnorm(p.ln2, h, cfg.norm_eps))
+        h = remat_call(_enc_block, p, h, cfg, remat=remat)
     return rmsnorm(params.enc_norm, h, cfg.norm_eps)
 
 
@@ -94,12 +110,34 @@ def _dec_block(p: DecLayer, h: torch.Tensor, memory: torch.Tensor,
     return h + mlp(p.mlp, rmsnorm(p.ln2, h, cfg.norm_eps))
 
 
+def encdec_forward(params: EncDec, frames: torch.Tensor,
+                   tokens: torch.Tensor, cfg: ModelConfig,
+                   remat: bool = True) -> torch.Tensor:
+    """Teacher-forced logits (b, s, v) f32 of the decoder over tokens (b, s)
+    against the encoder memory of frames."""
+    memory = encode(params, frames, cfg, remat)
+    x = embed(params.embed, tokens)
+    for p in params.dec:
+        x = remat_call(_dec_block, p, x, memory, cfg, remat=remat)
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    return unembed(params.embed, x)
+
+
+def encdec_loss(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor,
+                cfg: ModelConfig, remat: bool = True
+                ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy: (loss, {"loss"})."""
+    logits = encdec_forward(params, frames, tokens[:, :-1], cfg, remat)
+    loss = next_token_nll(logits, tokens[:, 1:])
+    return loss, {"loss": loss}
+
+
 def encdec_prefill(params: EncDec, frames: torch.Tensor,
                    tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Prompt processing for serving: the logits of the last position only
     (b, 1, v) f32.  Like the reference it returns no cache: a decode
     starts from :func:`encdec_init_caches` and feeds the prompt."""
-    memory = encode(params, frames, cfg)
+    memory = encode(params, frames, cfg, remat=False)
     x = embed(params.embed, tokens)
     for p in params.dec:
         x = _dec_block(p, x, memory, cfg)

@@ -14,11 +14,10 @@ blocks), as in the reference.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..kernels.paged_attn import ops as paged_ops
@@ -44,6 +43,18 @@ def _const(t: torch.Tensor) -> nn.Parameter:
 
 def _zeros(shape, dtype, device) -> nn.Parameter:
     return _const(torch.zeros(shape, dtype=dtype, device=device))
+
+
+def remat_call(fn, *args, remat: bool = True):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat`` and
+    autograd is recording: the reference's ``jax.checkpoint`` with its
+    default ("full") policy, which keeps only the inputs and recomputes
+    the rest in the backward pass.  Without a graph being built there is
+    nothing to recompute, so serving calls ``fn`` directly."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -76,18 +87,11 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
-@functools.lru_cache(maxsize=16)
-def _rope_freqs(head_dim: int, theta: float,
-                device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(rope_frequencies(head_dim, theta).astype(
-        np.float32)).to(device)
-
-
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions: (..., seq).  The
+               freqs: torch.Tensor) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq); freqs the
+    float32 ``rope_frequencies`` (``Attention.rope_freqs``).  The
     split-halves rotation (not interleaved)."""
-    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
     ang = positions[..., :, None].float() * freqs        # (..., S, hd/2)
     cos = torch.cos(ang)[..., :, None, :]
     sin = torch.sin(ang)[..., :, None, :]
@@ -112,6 +116,10 @@ class Attention(nn.Module):
         self.wk = _init(gen, (d, nkv * hd), s, dt)
         self.wv = _init(gen, (d, nkv * hd), s, dt)
         self.wo = _init(gen, (nh * hd, d), (nh * hd) ** -0.5, dt)
+        # a constant, not a parameter: outside the state dict
+        self.register_buffer("rope_freqs", torch.from_numpy(
+            rope_frequencies(hd, cfg.rope_theta).astype(np.float32)).to(
+                gen.device), persistent=False)
         if cfg.qkv_bias:
             self.q_bias = _zeros((nh * hd,), dt, gen.device)
             self.k_bias = _zeros((nkv * hd,), dt, gen.device)
@@ -128,8 +136,8 @@ def _qkv(p: Attention, x: torch.Tensor, cfg, positions) -> tuple:
         q = q + p.q_bias
         k = k + p.k_bias
         v = v + p.v_bias
-    q = apply_rope(q.reshape(b, s, nh, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, nkv, hd), positions, cfg.rope_theta)
+    q = apply_rope(q.reshape(b, s, nh, hd), positions, p.rope_freqs)
+    k = apply_rope(k.reshape(b, s, nkv, hd), positions, p.rope_freqs)
     return q, k, v.reshape(b, s, nkv, hd)
 
 

@@ -1,7 +1,8 @@
-"""The causal LM of every decoder-only family: init, prefill and decode
-(``repro.models.lm``'s ``grouped_layout``, ``init_lm``, ``init_caches``,
-``lm_prefill``, ``lm_decode``) for the dense, MoE, VLM and audio
-backbones (ATTN stacks), xLSTM and the Mamba2 hybrid.
+"""The causal LM of every decoder-only family: init, the training forward
+and loss, prefill and decode (``repro.models.lm``'s ``grouped_layout``,
+``init_lm``, ``lm_forward``, ``lm_loss``, ``init_caches``, ``lm_prefill``,
+``lm_decode``) for the dense, MoE, VLM and audio backbones (ATTN stacks),
+xLSTM and the Mamba2 hybrid.
 
 The reference scans stacked parameter trees over its layout's groups; here
 :class:`LM` holds a ``ModuleList`` of every layer's block in layer order
@@ -11,6 +12,10 @@ The reference scans stacked parameter trees over its layout's groups; here
 ``torch.Generator`` there, drawn in a fixed order with the reference's init
 scales); they are not the reference's numbers for the same seed, so tests
 carry the reference's weights across (``interop.lm_params_from_jax``).
+Every parameter is made with ``requires_grad=False``, so serving builds no
+autograd graph; ``train.train_step.make_train_state`` turns it on for the
+model it trains.  The hybrid's shared block is one module applied at each
+of its applications, so its gradient sums over them.
 
 The caches are the reference's tree: a list with one entry a group of
 :func:`grouped_layout`; a ``("scan", kind, count)`` group holds its kind's
@@ -36,7 +41,7 @@ from ..kernels import resolve_device
 from ..serve.paged_kv import PagedKVCache
 from .blocks import ATTN_KINDS, Block, block_init_cache, layout
 from .config import BlockKind, ModelConfig
-from .layers import Embed, RMSNorm, embed, rmsnorm, unembed
+from .layers import Embed, RMSNorm, embed, remat_call, rmsnorm, unembed
 
 Group = tuple  # ("scan", kind, count) | ("rep", ((kind, count), ...), n_rep)
 
@@ -113,6 +118,10 @@ class LM(nn.Module):
     """Embeddings, every layer's :class:`Block`, the hybrid's shared
     attention block and the final norm."""
 
+    #: the parameters the reference stacks over its layout's layer axes
+    #: (``train.optimizer`` decays by the reference's ranks)
+    stacked_prefixes = ("blocks.",)
+
     def __init__(self, cfg: ModelConfig, seed: int = 0,
                  device: str | torch.device | None = None):
         super().__init__()
@@ -140,6 +149,41 @@ class LM(nn.Module):
 def init_lm(cfg: ModelConfig, seed: int = 0,
             device: str | torch.device | None = None) -> LM:
     return LM(cfg, seed, device)
+
+
+def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
+               remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (b, s) -> (logits (b, s, v) f32, aux loss f32).  With
+    ``remat`` every block application is checkpointed (the reference's
+    "full" policy); the aux loss sums the MoE blocks' load-balancing
+    terms."""
+    x = embed(params.embed, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for app in params.apps:
+        x, a = remat_call(params.block(app), x, remat=remat)
+        aux = aux + a
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    return unembed(params.embed, x), aux
+
+
+def next_token_nll(logits: torch.Tensor, targets: torch.Tensor
+                   ) -> torch.Tensor:
+    """The mean next-token cross entropy of logits (b, s, v) against
+    targets (b, s)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+
+
+def lm_loss(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
+            aux_weight: float = 0.01, remat: bool = True
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy over tokens (b, s): (loss + aux_weight *
+    aux, {"loss", "aux", "ppl_proxy"})."""
+    logits, aux = lm_forward(params, tokens[:, :-1], cfg, remat)
+    loss = next_token_nll(logits, tokens[:, 1:])
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux": aux,
+                   "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
 
 
 def _map(fn, tree):

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch``, nor
-``chip_smoke.py`` nor a script under ``tools/``, imports JAX or the JAX
-package, and ``chip_smoke.py`` refuses to report a result without a card
+``chip_smoke.py``, a script under ``tools/`` or an ``examples/*_torch.py``,
+imports JAX or the JAX package, and ``chip_smoke.py`` refuses to report a result without a card
 or without the repository."""
 
 import ast
@@ -20,7 +20,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + \
-        sorted((REPO / "tools").glob("*.py"))
+        sorted((REPO / "tools").glob("*.py")) + \
+        sorted((REPO / "examples").glob("*_torch.py"))
 
 
 @pytest.mark.parametrize("path", _sources(),
