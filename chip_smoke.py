@@ -10,9 +10,11 @@ of one process a rank from saved plans, and both served by the plan-cache
 daemon) and serving qwen2-1.5b (and, briefly, stablelm-3b and every other
 model family: MoE, the Mamba2 hybrid, xLSTM, the encoder-decoder, the
 int8 KV cache and a prompt of 8192 tokens) with the paged decode; and
-four paths without a kernel of their own: training (every family's
+five paths without a kernel of their own: training (every family's
 reduced config card against CPU, qwen2-1.5b at full width, checkpoints,
-faults and the offload planner over its gradient), the n-party
+faults and the offload planner over its gradient), the distributed
+layer (sharded training on a world of one, the pipeline as two
+processes on the card, the multi-pod dry run on the host), the n-party
 Shamir jobs on the card, the §8.2 scenario simulator (``bench``, host
 work) and secure aggregation (its sums on the card).
 TF32 stays off for the whole run: the plain versions' float32 products run
@@ -279,6 +281,24 @@ in full float32.  Phases, each raising on failure:
                  peak (both feasible); est_overhead at the pinned copy rate
                  measured here; the same gradient on the card, its
                  allocator peak beside peak_unbounded;
+    distributed  (a) a world of one on the card (NCCL, a (1, 1) mesh):
+                 reduced qwen2 in f32 sharded (DTensor parameters by
+                 params_shardings, ZeRO optimizer state, grad_pspecs)
+                 against unsharded, loss, gradients, mu and nu within
+                 relative 1e-5 and parameters within 1e-5; qwen2-1.5b at
+                 full width in bf16, 3 steps of the train phase's batch
+                 both ways, losses and parameters within 1e-4 (noise
+                 entries within 2 lr), ms a step both ways; (b) the
+                 pipeline (reduced stablelm-3b at 4 layers, 2 stages, 2
+                 microbatches) as two processes on the card over gloo,
+                 activations and gradients through host memory, loss
+                 and gradients within 1e-5 of lm_loss(aux_weight=0) and
+                 autograd; (c) the dry run's cells, built in a process
+                 started at the top (no card): qwen2-1.5b decode_32k on
+                 pod256 (ok, per-rank bytes under 80 GB, memory-bound),
+                 stablelm-3b decode_32k on pod512, qwen2-1.5b train_4k on
+                 pod256 and the train phase's own cell on (1, 1), whose
+                 analytic bound is printed beside (a)'s ms a step;
 24. attn record  a wrapper call timed at the main path's lengths and at the
                  32768-token batch: device time summed over the kernels it
                  launches (split and combine also apart, profiler), the
@@ -297,6 +317,7 @@ card's name and power limit, the kernels' JSON record and
 from __future__ import annotations
 
 import atexit
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -361,10 +382,19 @@ from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import lm_loss  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.fault import FaultConfig  # noqa: E402
-from repro_torch.train.optimizer import OptConfig, adamw_update  # noqa: E402
+from repro_torch.train.optimizer import (OptConfig,  # noqa: E402
+                                         adamw_update, init_opt_state)
 from repro_torch.train.train_step import (TrainConfig,  # noqa: E402
                                           accumulate_grads, make_train_state,
                                           train_step)
+from repro_torch.distributed.pipeline import (  # noqa: E402
+    pipeline_loss, split_stage_params, stage_param_specs)
+from repro_torch.distributed.sharding import (  # noqa: E402
+    P, NamedSharding, distribute, distribute_opt_state, distribute_params,
+    params_shardings, rules_for, use_rules, zero_pspecs)
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.specs import named as named_shardings  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 #: H100 SXM peaks: HBM3 bandwidth (NVIDIA data sheet), and 32-bit
 #: three-input logic operations (LOP3) per second: 64 per SM per clock (CUDA
@@ -5679,6 +5709,287 @@ def phase_offload(dev, model) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# distributed: sharded training on a world of one, the pipeline as two
+# processes on the card, the dry run of full-width cells (host work)
+# ---------------------------------------------------------------------------
+
+#: sharded steps held against the unsharded ones (full-width qwen2-1.5b)
+DIST_STEPS = 3
+#: the reduced float32 gate: step 1's learning rate 1e-6, so Adam's
+#: noise-level entries stay within 2e-6 (tests/_torch_dist.py)
+DIST_GATE_OPT = OptConfig(peak_lr=1e-3, warmup_steps=1000)
+DIST_GATE_TOL = 1e-5
+#: the dry run's cells, in a process of its own started at the top (no
+#: card): the reference's two integration cells, qwen2's train cell, and
+#: the train phase's own cell on a (1, 1) mesh
+DRYRUN_CELLS = (
+    dict(arch="qwen2-1.5b", shape="decode_32k", multi_pod=False),
+    dict(arch="stablelm-3b", shape="decode_32k", multi_pod=True),
+    dict(arch="qwen2-1.5b", shape="train_4k", multi_pod=False),
+    dict(arch="qwen2-1.5b", shape="train_4k", multi_pod=False,
+         mesh_shape=(1, 1), seq_len=TRAIN_DATA.seq_len,
+         global_batch=TRAIN_DATA.global_batch,
+         microbatches=TRAIN_TCFG.microbatches),
+)
+
+
+def dryrun_cells() -> list[dict]:
+    """``launch.dryrun.run_cell`` of each of DRYRUN_CELLS (a fake process
+    group a cell, in this process: no card)."""
+    from repro_torch.launch.dryrun import run_cell
+    out = []
+    for kw in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = run_cell(save=False, variant="chip", **kw)
+        r["wall_s"] = time.perf_counter() - t0
+        out.append(r)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _sharded(params, opt, mesh, cfg):
+    """The model's parameters as DTensors by params_shardings and the
+    optimizer state in the ZeRO specs; returns (rules, ZeRO specs, opt)."""
+    rules = rules_for(cfg, mesh)
+    distribute_params(params, params_shardings(params, mesh, rules))
+    zs = zero_pspecs(params, rules, mesh)
+    return rules, zs, distribute_opt_state(opt, named_shardings(zs, mesh))
+
+
+def _batch(host: dict, dev, mesh=None, rules=None) -> dict:
+    out = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    if mesh is None:
+        return out
+    return {k: distribute(v, NamedSharding(
+        mesh, P(rules.axis("batch"), *([None] * (v.ndim - 1)))))
+        for k, v in out.items()}
+
+
+def _train_steps(cfg, tcfg, data, steps: int, dev, mesh=None) -> dict:
+    """``steps`` train steps from the seeded state, unsharded or (``mesh``)
+    through the sharded path: losses, seconds a step, the final
+    parameters and nu on the host."""
+    params, opt = make_train_state(cfg, 0, dev)
+    rules = zs = None
+    if mesh is not None:
+        rules, zs, opt = _sharded(params, opt, mesh, cfg)
+    losses, secs = [], []
+    for step in range(steps):
+        batch = _batch(batch_for_step(data, step), dev, mesh, rules)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (use_rules(rules) if mesh is not None
+              else contextlib.nullcontext()):
+            _, _, m = train_step(params, opt, batch, cfg, tcfg,
+                                 grad_pspecs=zs)
+        losses.append(float(_whole(m["loss"])))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out = {"losses": losses, "secs": secs,
+           "params": {n: _whole(p).detach().cpu()
+                      for n, p in params.named_parameters()},
+           "nu": {n: _whole(t).cpu() for n, t in opt["nu"].items()},
+           "lr": float(_whole(m["lr"]))}
+    del params, opt, m
+    _free()
+    return out
+
+
+def _reduced_gate(dev, mesh) -> dict:
+    """Reduced qwen2 in float32: one step's loss, gradients, mu, nu
+    (relative) and parameters (absolute) sharded against unsharded, all
+    within 1e-5."""
+    cfg = dataclasses.replace(reduced_config("qwen2-1.5b"), dtype="float32")
+    tcfg = TrainConfig(microbatches=2, opt=DIST_GATE_OPT)
+    data = DataConfig(seq_len=17, global_batch=8, vocab_size=cfg.vocab_size)
+    host = batch_for_step(data, 0)
+    plain, popt = make_train_state(cfg, 0, dev)
+    model = copy.deepcopy(plain)
+    want_g, want_m = accumulate_grads(plain, _batch(host, dev), cfg, tcfg)
+    adamw_update(tcfg.opt, plain, want_g, popt)
+    rules, zs, opt = _sharded(model, init_opt_state(model), mesh, cfg)
+    with use_rules(rules):
+        got_g, got_m = accumulate_grads(model, _batch(host, dev, mesh, rules),
+                                        cfg, tcfg, grad_pspecs=zs)
+        adamw_update(tcfg.opt, model, got_g, opt)
+    out = {"loss": _rel(_whole(got_m["loss"]), want_m["loss"]),
+           "grads": max(_rel(_whole(g), want_g[n]) for n, g in got_g.items())}
+    for part in ("mu", "nu"):
+        out[part] = max(_rel(_whole(t), popt[part][n])
+                        for n, t in opt[part].items())
+    want_p = dict(plain.named_parameters())
+    out["params_abs"] = max(float((_whole(p) - want_p[n]).detach().abs()
+                                  .max()) for n, p in model.named_parameters())
+    if max(out.values()) > DIST_GATE_TOL:
+        raise AssertionError(f"distributed: reduced f32 gate {out}")
+    return out
+
+
+def _pipeline_rank(rank: int, port: int) -> dict:
+    """One of the pipeline's two processes on the card: reduced
+    stablelm-3b at 4 layers in float32, 2 stages (gloo: activations and
+    gradients staged through host memory), 2 microbatches, against
+    lm_loss(aux_weight=0) and its autograd gradients on the card."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        cfg = dataclasses.replace(reduced_config("stablelm-3b"), n_layers=4,
+                                  dtype="float32")
+        model = init_lm(cfg, 0, dev).requires_grad_(True)
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (4, 32)), dtype=torch.int32, device=dev)
+        piped = copy.deepcopy(model)
+        ref, _ = lm_loss(model, toks, cfg, aux_weight=0.0, remat=False)
+        names = [n for n, _ in model.named_parameters()]
+        want = dict(zip(names, torch.autograd.grad(ref, list(
+            model.parameters()))))
+        mesh = make_mesh((2, 1, 1), ("pod", "data", "model"), "cpu")
+        rules = rules_for(cfg, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = pipeline_loss(split_stage_params(piped, 2), toks, cfg, mesh,
+                             n_micro=2, rules=rules)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stage = mesh.get_coordinate()[0]
+        mine = [n for n, (s, _) in stage_param_specs(piped, 2, rules).items()
+                if s in (None, stage)]
+        got = dict(piped.named_parameters())
+        return {"rank": rank, "stage": stage, "loss": float(loss),
+                "ref": float(ref),
+                "loss_rel": abs(float(loss) - float(ref)) / abs(float(ref)),
+                "grads_rel": max(_rel(got[n].grad, want[n]) for n in mine),
+                "params_checked": len(mine), "s": secs,
+                "grad_device": str(got[mine[0]].grad.device)}
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_sharded(dev, smi: str) -> dict:
+    """(a): a world of one on the card (NCCL, a (1, 1) mesh)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        gate = _reduced_gate(dev, mesh)
+        plain = _train_steps(QWEN2, TRAIN_TCFG, TRAIN_DATA, DIST_STEPS, dev)
+        sharded = _train_steps(QWEN2, TRAIN_TCFG, TRAIN_DATA, DIST_STEPS, dev,
+                               mesh)
+    finally:
+        dist.destroy_process_group()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(sharded["losses"], plain["losses"]))
+    params_rel, noisy = _adam_params_rel(plain["params"], sharded["params"],
+                                         plain["nu"], plain["lr"])
+    if loss_rel >= PARITY_REL or params_rel >= PARITY_REL:
+        raise AssertionError(f"distributed: sharded != unsharded: loss "
+                             f"{loss_rel}, params {params_rel}")
+    ms = {k: statistics.median(r["secs"][1:]) * 1e3
+          for k, r in (("unsharded", plain), ("sharded", sharded))}
+    out = {"gate_f32": gate, "losses": sharded["losses"],
+           "loss_rel": loss_rel, "params_rel": params_rel,
+           "noise_entries": noisy, "ms_per_step": ms,
+           "first_step_s": {"unsharded": plain["secs"][0],
+                            "sharded": sharded["secs"][0]},
+           "card": smi}
+    log(f"distributed (a): world of one (NCCL, (1, 1) mesh); reduced qwen2 "
+        f"f32 sharded == unsharded within 1e-5: {gate}; {QWEN2.name} at full "
+        f"width, bf16, {DIST_STEPS} steps of batch {TRAIN_DATA.global_batch} "
+        f"x {TRAIN_DATA.seq_len}, 2 microbatches, remat: losses "
+        f"{sharded['losses']}, loss rel {loss_rel:.3e}, params rel "
+        f"{params_rel:.3e} ({noisy} noise-level entries within 2 lr); "
+        f"{ms['sharded']:.2f} ms a step sharded (DTensor parameters, ZeRO "
+        f"state, grad_pspecs) against {ms['unsharded']:.2f} ms unsharded "
+        f"(median of steps 2-{DIST_STEPS}; {smi})")
+    return out
+
+
+def _dist_pipeline() -> dict:
+    """(b): the pipeline as two processes on the one card."""
+    port = _free_port()
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        jobs = [pool.apply_async(_pipeline_rank, (r, port)) for r in (0, 1)]
+        ranks = [j.get(timeout=600) for j in jobs]
+    bad = [r for r in ranks if r["loss_rel"] > DIST_GATE_TOL
+           or r["grads_rel"] > DIST_GATE_TOL]
+    if bad:
+        raise AssertionError(f"distributed: pipeline {bad}")
+    log("distributed (b): pipeline_loss, reduced stablelm-3b at 4 layers in "
+        "f32, 2 stages as two processes on the card (gloo; activations and "
+        "gradients through host memory), 2 microbatches: " + "; ".join(
+            f"rank {r['rank']} loss {r['loss']:.6f} (lm_loss "
+            f"{r['ref']:.6f}, rel {r['loss_rel']:.2e}), grads rel "
+            f"{r['grads_rel']:.2e} over {r['params_checked']} parameters "
+            f"on {r['grad_device']}, {r['s']:.2f} s" for r in ranks))
+    return {"ranks": ranks}
+
+
+def _dist_dryrun(cells, ms_step: float) -> dict:
+    """(c): the dry run's cells, computed meanwhile in a process of its
+    own; the reference's assertions on qwen2-1.5b decode_32k."""
+    out = []
+    for kw, r in zip(DRYRUN_CELLS, cells):
+        if not r["ok"]:
+            raise AssertionError(f"distributed: dry run {kw}: "
+                                 f"{r.get('error')}\n{r.get('traceback')}")
+        roof, mem = r["roofline"], r["memory"]
+        per_rank = mem["argument_bytes"] + mem["temp_bytes"]
+        out.append({"cell": f"{r['arch']} {r['shape']} {r['mesh']}",
+                    "per_rank_bytes": per_rank, "memory": mem,
+                    "dominant": roof["dominant"],
+                    "terms_s": [roof["compute_s"], roof["memory_s"],
+                                roof["collective_s"]],
+                    "bound_s": max(roof["compute_s"], roof["memory_s"],
+                                   roof["collective_s"]),
+                    "roofline_fraction": roof["roofline_fraction"],
+                    "collectives": r["collectives"],
+                    "counted_flops": r["roofline_hlo_raw"]["flops_per_chip"],
+                    "build_s": r["lower_s"], "trace_s": r["compile_s"],
+                    "wall_s": r["wall_s"]})
+    first = out[0]
+    if first["per_rank_bytes"] >= 80e9 or first["dominant"] != "memory":
+        raise AssertionError(f"distributed: qwen2 decode_32k pod256 {first}")
+    for c in out:
+        log(f"distributed (c): dry run {c['cell']}: compute / memory / "
+            f"collective {c['terms_s'][0]:.4g} / {c['terms_s'][1]:.4g} / "
+            f"{c['terms_s'][2]:.4g} s (analytic, H100 constants; model "
+            f"outputs, not device times), dominant {c['dominant']}, roofline "
+            f"fraction {c['roofline_fraction']:.4f}; per rank "
+            f"{c['per_rank_bytes']:,} B (arguments "
+            f"{c['memory']['argument_bytes']:,}, temp "
+            f"{c['memory']['temp_bytes']:,}); collectives "
+            f"{c['collectives']}; counted FLOPs {c['counted_flops']:.4g}; "
+            f"build {c['build_s']:.1f} s, trace {c['trace_s']:.1f} s")
+    own = out[-1]
+    log(f"distributed (c): the train phase's own cell on a (1, 1) mesh: "
+        f"analytic bound {own['bound_s'] * 1e3:.3f} ms ({own['dominant']}) "
+        f"against {ms_step:.2f} ms a sharded step measured in (a)")
+    return {"cells": out}
+
+
+def phase_distributed(dev, smi: str, cells) -> dict:
+    a = _dist_sharded(dev, smi)
+    b = _dist_pipeline()
+    c = _dist_dryrun(cells.get(timeout=900), a["ms_per_step"]["sharded"])
+    return {"sharded": a, "pipeline": b, "dryrun": c}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
@@ -5701,6 +6012,10 @@ def main() -> None:
     case_pool = multiprocessing.get_context("spawn").Pool(1)
     atexit.register(case_pool.terminate)      # also when a phase fails
     case = case_pool.apply_async(streaming_case)
+    # the distributed phase's dry run cells (host work), likewise
+    dry_pool = multiprocessing.get_context("spawn").Pool(1)
+    atexit.register(dry_pool.terminate)
+    dry_cells = dry_pool.apply_async(dryrun_cells)
     # the baselines phase's CPU runs, likewise
     base_pool = multiprocessing.get_context("spawn").Pool(1)
     atexit.register(base_pool.terminate)
@@ -5734,6 +6049,9 @@ def main() -> None:
     train_parity = timed("train parity", phase_train_parity, dev)
     train = timed("train", phase_train, dev, smi)
     offload = timed("offload", phase_offload, dev, model)
+    with dry_pool:
+        distributed = timed("distributed", phase_distributed, dev, smi,
+                            dry_cells)
     # after the serve phases, which so run in the process as they did
     # before the baselines existed
     with base_pool:
@@ -5782,6 +6100,7 @@ def main() -> None:
         "serve_stablelm": stablelm, "serve_families": families,
         "families_parity": families_parity,
         "train_parity": train_parity, "train": train, "offload": offload,
+        "distributed": distributed,
         "serve_profile": serve_profiled, "baselines": baselines,
         "gc_workloads": gc_workloads, "workers": workers, "fleet": fleet,
         "streaming": streaming, "shamir": shamir,

@@ -3,9 +3,8 @@
 ``--arch <id>`` resolves through :func:`get_config`; :func:`reduced_config`
 returns the same family scaled down for CPU tests, exactly as the reference
 does.  The modules are imported statically (the reference resolves them by
-name at run time); the shape cells are the reference's.  Only the dense
-family without experts runs in this port (``models.lm`` raises for the
-others; ROADMAP.md lists what is left).
+name at run time); the shape cells and :func:`all_cells` (every arch x its
+applicable shapes, the dry run's sweep) are the reference's.
 """
 
 from __future__ import annotations
@@ -82,3 +81,12 @@ def applicable_shapes(cfg: ModelConfig) -> list[str]:
     if cfg.sub_quadratic:
         out.append("long_500k")   # skipped for pure full-attention archs
     return out
+
+
+def all_cells() -> list[tuple[str, str]]:
+    cells = []
+    for a in ARCHS:
+        cfg = get_config(a)
+        for s in applicable_shapes(cfg):
+            cells.append((a, s))
+    return cells

@@ -22,9 +22,9 @@ the parallel forms only.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import pad
 from .config import BlockKind, ModelConfig
 from .layers import (MLP, Attention, RMSNorm, _dtype, _quantize_kv,
                      attention, attention_decode, attention_decode_paged,
@@ -84,18 +84,31 @@ class Block(nn.Module):
         """The training forward (``block_train``): returns (x, aux loss),
         the aux loss the MoE's load-balancing term (0 for every other
         block).  The recurrent kinds run their parallel forms."""
+        if self.kind in ATTN_KINDS:
+            return self.mlp_half(self.attn_half(x))
         cfg = self.cfg
         h = rmsnorm(self.ln1, x, cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if self.kind in ATTN_KINDS:
-            x = x + attention(self.attn, h, cfg)
-            if hasattr(self, "moe"):
-                out, aux = moe_mlp(self.moe,
-                                   rmsnorm(self.ln2, x, cfg.norm_eps), cfg)
-                return x + out, aux
-            return self._mlp(x), aux
         mod, block, _, _ = self._mixer()
         return x + block(mod, h, cfg), aux
+
+    def attn_half(self, x: torch.Tensor) -> torch.Tensor:
+        """An attention kind's first half: x + attention, the
+        post-attention residual (the reference's first ``block_out``)."""
+        cfg = self.cfg
+        return x + attention(self.attn, rmsnorm(self.ln1, x, cfg.norm_eps),
+                             cfg)
+
+    def mlp_half(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """An attention kind's second half: (x + the MLP's or the MoE's
+        output, aux loss)."""
+        cfg = self.cfg
+        if hasattr(self, "moe"):
+            out, aux = moe_mlp(self.moe, rmsnorm(self.ln2, x, cfg.norm_eps),
+                               cfg)
+            return x + out, aux
+        return self._mlp(x), torch.zeros((), dtype=torch.float32,
+                                         device=x.device)
 
     def prefill(self, x: torch.Tensor, max_seq: int):
         """Returns (x, cache): for the attention kinds (k, v), or the int8
@@ -106,14 +119,14 @@ class Block(nn.Module):
         if self.kind in ATTN_KINDS:
             out, (k, v) = attention_prefill(self.attn, h, cfg)
             x = self._mlp(x + out)
-            pad = max_seq - k.shape[1]
+            n_pad = max_seq - k.shape[1]
             if cfg.kv_cache_dtype == "int8":
                 (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
-                p4, p3 = (0, 0, 0, 0, 0, pad), (0, 0, 0, pad)
-                return x, (F.pad(kq, p4), F.pad(vq, p4), F.pad(ks, p3),
-                           F.pad(vs, p3))
-            p4, dt = (0, 0, 0, 0, 0, pad), _dtype(cfg)
-            return x, (F.pad(k.to(dt), p4), F.pad(v.to(dt), p4))
+                p4, p3 = (0, 0, 0, 0, 0, n_pad), (0, 0, 0, n_pad)
+                return x, (pad(kq, p4), pad(vq, p4), pad(ks, p3),
+                           pad(vs, p3))
+            p4, dt = (0, 0, 0, 0, 0, n_pad), _dtype(cfg)
+            return x, (pad(k.to(dt), p4), pad(v.to(dt), p4))
         mod, block, decode, init_state = self._mixer()
         y = block(mod, h, cfg)
         state = init_state(cfg, x.shape[0], x.device)

@@ -6,10 +6,19 @@ Parameters live in small ``nn.Module``s (:class:`RMSNorm`,
 :class:`Attention`, :class:`MLP`, :class:`Embed`) on an explicit device, in
 the reference's ``(d_in, d_out)`` layout with ``x @ W``; the apply
 functions keep the reference's names and take the module in place of its
-parameter dict.  The reference's sharding constraints are no-ops outside a
-mesh and are dropped.  Prompts of ``CHUNKED_SDPA_THRESHOLD`` tokens or
-more take the flash-style ``_sdpa_chunked`` (online softmax over q and kv
-blocks), as in the reference.
+parameter dict.  Prompts of ``CHUNKED_SDPA_THRESHOLD`` tokens or more take
+the flash-style ``_sdpa_chunked`` (online softmax over q and kv blocks), as
+in the reference.
+
+The reference's sharding constraints sit at the same places
+(``distributed.sharding.shard``): they redistribute DTensor activations
+under active rules and pass plain tensors as they are.  On DTensors the
+attention core (``_sdpa``, ``attention_decode``) runs on each rank's shard
+(``_attention_local``, ``_decode_local``): batch and KV heads stay where
+they are, the queries' heads follow the KV heads, and where the KV heads
+cannot shard, the queries' sequence does (the reference's ``scores_q``),
+or a decode cache's sequence (``kv_seq``; the softmax is then combined
+across ranks).
 """
 
 from __future__ import annotations
@@ -19,7 +28,11 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.distributed import _functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..distributed.sharding import (axis_names, current_rules, local_region,
+                                    shard)
 from ..kernels.paged_attn import ops as paged_ops
 
 
@@ -136,9 +149,12 @@ def _qkv(p: Attention, x: torch.Tensor, cfg, positions) -> tuple:
         q = q + p.q_bias
         k = k + p.k_bias
         v = v + p.v_bias
-    q = apply_rope(q.reshape(b, s, nh, hd), positions, p.rope_freqs)
-    k = apply_rope(k.reshape(b, s, nkv, hd), positions, p.rope_freqs)
-    return q, k, v.reshape(b, s, nkv, hd)
+    q = shard(q.reshape(b, s, nh, hd), "batch", "seq", "heads", None)
+    k = shard(k.reshape(b, s, nkv, hd), "batch", "seq", "kv_heads", None)
+    v = shard(v.reshape(b, s, nkv, hd), "batch", "seq", "kv_heads", None)
+    q = apply_rope(q, positions, p.rope_freqs)
+    k = apply_rope(k, positions, p.rope_freqs)
+    return q, k, v
 
 
 CHUNKED_SDPA_THRESHOLD = 8192   # flash-style blocking from this seq on
@@ -220,10 +236,70 @@ def _sdpa_dense(q, k, v, cfg, causal_offset: int | None) -> torch.Tensor:
 def _sdpa(q, k, v, cfg, causal_offset: int | None) -> torch.Tensor:
     """q: (b, sq, nh, hd); k/v: (b, skv, nkv, hd).  causal_offset = skv - sq
     for causal masking; None = no mask (full).  From
-    ``CHUNKED_SDPA_THRESHOLD`` query tokens on, the chunked form."""
-    if q.shape[1] >= CHUNKED_SDPA_THRESHOLD:
-        return _sdpa_chunked(q, k, v, cfg, causal_offset)
-    return _sdpa_dense(q, k, v, cfg, causal_offset)
+    ``CHUNKED_SDPA_THRESHOLD`` query tokens on, the chunked form.  On
+    DTensors, each rank's shard (``_attention_local``)."""
+    form = _sdpa_chunked if q.shape[1] >= CHUNKED_SDPA_THRESHOLD \
+        else _sdpa_dense
+    if isinstance(q, DTensor):
+        return _attention_local(q, k, v, cfg, causal_offset, form)
+    return form(q, k, v, cfg, causal_offset)
+
+
+# ---------------------------------------------------------------------------
+# attention on each rank's shard (DTensor activations)
+# ---------------------------------------------------------------------------
+
+
+def _kv_layout(kp):
+    """Where K/V's (or a cache's) placement on one mesh dim leaves the
+    attention: batch and head shards are kept, anything else replicated."""
+    return kp if kp in (Shard(0), Shard(2)) else Replicate()
+
+
+def _shard_offset(mesh, pl: tuple, dim: int, local: int) -> int:
+    """The global index of this rank's first entry on tensor dim ``dim``
+    (``local`` entries a rank, even shards): the mesh dims sharding it,
+    major to minor."""
+    coord = mesh.get_coordinate()
+    lin = 0
+    for i, p in enumerate(pl):
+        if p == Shard(dim):
+            lin = lin * mesh.size(i) + coord[i]
+    return lin * local
+
+
+def _attention_local(q, k, v, cfg, causal_offset, form) -> DTensor:
+    """``form`` (dense or chunked attention) on each rank's shard of DTensor
+    q, k, v.  Keeps K/V's batch and head shards and gives the queries the
+    same; where a mesh dim shards neither, the rules' ``scores_q`` names it
+    and it divides the query length, the queries' sequence is sharded over
+    it (each rank's causal mask offset by its first row).  Returns the
+    DTensor (b, sq, nh * hd) in the rules' (batch, seq, heads) layout."""
+    mesh = q.device_mesh
+    names = axis_names(mesh)
+    rules = current_rules()
+    scores_q = rules.axis("scores_q") if rules is not None else None
+    kv_pl = tuple(_kv_layout(p) for p in k.placements)
+    b, sq, nh, hd = q.shape
+    q_pl = tuple(Shard(1) if p == Replicate() and names[i] == scores_q
+                 and sq % mesh.size(i) == 0 else p
+                 for i, p in enumerate(kv_pl))
+    seq = tuple(i for i, p in enumerate(q_pl) if p == Shard(1))
+    kv_grad = tuple(Partial() if i in seq else p for i, p in enumerate(kv_pl))
+
+    def local(ql, kl, vl):
+        offset = causal_offset
+        if seq and offset is not None:   # this rank's first query row
+            offset += _shard_offset(mesh, q_pl, 1, ql.shape[1])
+        return form(ql, kl, vl, cfg, offset)
+
+    out = local_region(local, mesh,
+                       (q_pl, kv_pl, kv_pl), (q_pl,),
+                       lambda i, o: (b, sq, nh * hd),
+                       (q_pl, kv_grad, kv_grad))(q, k, v)
+    # back to the activations' layout (a query-sequence shard only bounds
+    # the scores)
+    return shard(out, "batch", "seq", "heads")
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -238,7 +314,8 @@ def attention(p: Attention, x: torch.Tensor, cfg, positions=None,
     if positions is None:
         positions = _positions(x)
     q, k, v = _qkv(p, x, cfg, positions)
-    return _sdpa(q, k, v, cfg, 0 if causal else None) @ p.wo
+    out = _sdpa(q, k, v, cfg, 0 if causal else None) @ p.wo
+    return shard(out, "batch", "seq", None)
 
 
 def attention_prefill(p: Attention, x: torch.Tensor, cfg, positions=None):
@@ -246,7 +323,8 @@ def attention_prefill(p: Attention, x: torch.Tensor, cfg, positions=None):
     if positions is None:
         positions = _positions(x)
     q, k, v = _qkv(p, x, cfg, positions)
-    return _sdpa(q, k, v, cfg, 0) @ p.wo, (k, v)
+    out = _sdpa(q, k, v, cfg, 0) @ p.wo
+    return shard(out, "batch", "seq", None), (k, v)
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -267,35 +345,95 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg, cache, cache_len):
     payloads and per-(token, head) f16 scales (b, max_seq, nkv).  cache_len
     (b,) valid entries.  The new token is written at position cache_len in
     place (the reference returns an updated copy) and attends over
-    positions <= cache_len.  Returns (out, cache)."""
-    b = x.shape[0]
+    positions <= cache_len.  DTensor caches: each rank's shard
+    (``_decode_local``).  Returns (out, cache)."""
     q, k_new, v_new = _qkv(p, x, cfg, cache_len[:, None])
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    rows = torch.arange(b, device=x.device)
+    if isinstance(cache[0], DTensor):
+        out = _decode_local(q, k_new, v_new, cache, cache_len)
+    else:
+        out = _decode_core(q, k_new, v_new, cache, cache_len)
+    return out.to(x.dtype) @ p.wo, cache
+
+
+def _decode_core(q, k_new, v_new, cache, cache_len, lo: int | None = None,
+                 groups: tuple = ()) -> torch.Tensor:
+    """The decode attention on plain tensors: writes the new K/V at
+    cache_len and attends; returns (b, 1, nh * hd) float32.  A shard of a
+    cache whose sequence is split holds positions ``lo`` on: it writes only
+    the rows whose position falls in it, and the softmax's max, sum and
+    weighted values are reduced over ``groups`` (mesh dims)."""
+    b, _, nh, hd = q.shape
+    nkv = k_new.shape[2]
+    rows = torch.arange(b, device=q.device)
     if len(cache) == 4:
         k_cache, v_cache, k_sc, v_sc = cache
         kq, ks = _quantize_kv(k_new)
         vq, vs = _quantize_kv(v_new)
-        k_cache[rows, cache_len] = kq[:, 0]
-        v_cache[rows, cache_len] = vq[:, 0]
-        k_sc[rows, cache_len] = ks[:, 0]
-        v_sc[rows, cache_len] = vs[:, 0]
+        writes = ((k_cache, kq), (v_cache, vq), (k_sc, ks), (v_sc, vs))
+    else:
+        k_cache, v_cache = cache
+        writes = ((k_cache, k_new.to(k_cache.dtype)),
+                  (v_cache, v_new.to(v_cache.dtype)))
+    skv = k_cache.shape[1]
+    if lo is None:
+        for t, new in writes:
+            t[rows, cache_len] = new[:, 0]
+    else:
+        pos = cache_len - lo
+        mine = (pos >= 0) & (pos < skv)
+        pos = pos.clamp(0, skv - 1)
+        for t, new in writes:
+            keep = mine.view((b,) + (1,) * (new.ndim - 2))
+            t[rows, pos] = torch.where(keep, new[:, 0], t[rows, pos])
+    if len(cache) == 4:
         k_eff = k_cache.float() * k_sc.float()[..., None]
         v_eff = v_cache.float() * v_sc.float()[..., None]
     else:
-        k_cache, v_cache = cache
-        k_cache[rows, cache_len] = k_new[:, 0].to(k_cache.dtype)
-        v_cache[rows, cache_len] = v_new[:, 0].to(v_cache.dtype)
         k_eff, v_eff = k_cache.float(), v_cache.float()
-    skv = k_cache.shape[1]
     qg = q.reshape(b, 1, nkv, nh // nkv, hd)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_eff) * hd ** -0.5
-    valid = torch.arange(skv, device=x.device)[None, :] <= cache_len[:, None]
+    cols = torch.arange(skv, device=q.device) + (lo or 0)
+    valid = cols[None, :] <= cache_len[:, None]
     scores = scores.masked_fill(~valid[:, None, None, None, :], -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_eff)
-    out = out.reshape(b, 1, nh * hd).to(x.dtype) @ p.wo
-    return out, cache
+    if not groups:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_eff)
+        return out.reshape(b, 1, nh * hd)
+    m = scores.amax(-1, keepdim=True)
+    for g in groups:
+        m = funcol.all_reduce(m, "max", g)
+    e = torch.exp(scores - m)
+    den = e.sum(-1)                                       # (b, h, g, 1)
+    acc = torch.einsum("bhgqk,bkhd->bqhgd", e, v_eff)
+    for g in groups:
+        den = funcol.all_reduce(den, "sum", g)
+        acc = funcol.all_reduce(acc, "sum", g)
+    out = acc / den.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, 1, nh * hd)
+
+
+def _decode_local(q, k_new, v_new, cache, cache_len) -> DTensor:
+    """``_decode_core`` on each rank's shard of DTensor caches: the new
+    token's q, K and V take the cache's batch and KV-head shards; a mesh
+    dim that shards the cache's sequence (``kv_seq``) gets the rows it
+    holds written and joins the softmax's reductions."""
+    mesh = cache[0].device_mesh
+    cpl = tuple(cache[0].placements)
+    head_pl = tuple(_kv_layout(p) for p in cpl)
+    batch_pl = tuple(p if p == Shard(0) else Replicate() for p in cpl)
+    seq = tuple(i for i, p in enumerate(cpl) if p == Shard(1))
+    groups = tuple((mesh, i) for i in seq)
+
+    def local(ql, kl, vl, cl, *c):
+        lo = _shard_offset(mesh, cpl, 1, c[0].shape[1]) if seq else None
+        return _decode_core(ql, kl, vl, c, cl, lo, groups)
+
+    b, _, nh, hd = q.shape
+    return local_region(
+        local, mesh, (head_pl,) * 3 + (batch_pl,) + tuple(tuple(t.placements)
+                                              for t in cache),
+        (head_pl,), lambda i, o: (b, 1, nh * hd))(
+        q, k_new, v_new, cache_len, *cache)
 
 
 def attention_cross(p: Attention, x: torch.Tensor, memory: torch.Tensor,
@@ -308,7 +446,7 @@ def attention_cross(p: Attention, x: torch.Tensor, memory: torch.Tensor,
     q = (x @ p.wq).reshape(b, s, nh, hd)
     k = (memory @ p.wk).reshape(b, sm, nkv, hd)
     v = (memory @ p.wv).reshape(b, sm, nkv, hd)
-    return _sdpa(q, k, v, cfg, None) @ p.wo
+    return shard(_sdpa(q, k, v, cfg, None) @ p.wo, "batch", "seq", None)
 
 
 def attention_decode_paged(p: Attention, x: torch.Tensor, cfg, cache,
@@ -348,7 +486,9 @@ class MLP(nn.Module):
 
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    g = shard(x @ p.w_gate, "batch", "seq", "ff")
+    u = shard(x @ p.w_up, "batch", "seq", "ff")
+    return shard((F.silu(g) * u) @ p.w_down, "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -367,9 +507,39 @@ class Embed(nn.Module):
 
 
 def embed(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
-    return p.embed[tokens]
+    w = p.embed
+    if isinstance(w, DTensor) and Shard(0) in w.placements:
+        return shard(_embed_vocab_shards(w, tokens), "batch", "seq", None)
+    return shard(F.embedding(tokens, w), "batch", "seq", None)
+
+
+def _embed_vocab_shards(w: DTensor, tokens) -> DTensor:
+    """The lookup in a vocab-sharded table: each rank looks up the tokens
+    its rows hold and zeros the rest, so the result is a partial sum over
+    the vocab's mesh dims (the tokens' batch shards are kept).  Its
+    gradient is a plain sum too, as the tied unembedding's is."""
+    mesh = w.device_mesh
+    tok_pl = tuple(tokens.placements) if isinstance(tokens, DTensor) \
+        else (Replicate(),) * mesh.ndim
+    tok_pl = tuple(Replicate() if wp == Shard(0) else tp
+                   for wp, tp in zip(w.placements, tok_pl))
+    wpl = tuple(w.placements)
+    w_grad = tuple(Partial() if wp == Replicate() and tp != Replicate()
+                   else wp for wp, tp in zip(wpl, tok_pl))
+
+    def lookup(wl, tl):
+        lo = _shard_offset(mesh, wpl, 0, wl.shape[0])
+        mine = (tl >= lo) & (tl < lo + wl.shape[0])
+        return F.embedding((tl - lo).clamp(0, wl.shape[0] - 1), wl) \
+            * mine[..., None].to(wl.dtype)
+
+    pl = tuple(Partial() if wp == Shard(0) else tp
+               for wp, tp in zip(wpl, tok_pl))
+    return local_region(lookup, mesh, (wpl, tok_pl), (pl,),
+                        lambda i, o: tuple(tokens.shape) + (w.shape[1],),
+                        (w_grad, tok_pl))(w, tokens)
 
 
 def unembed(p: Embed, x: torch.Tensor) -> torch.Tensor:
     w = p.lm_head if hasattr(p, "lm_head") else p.embed.T
-    return (x @ w).float()
+    return shard((x @ w).float(), "batch", "seq", "vocab")

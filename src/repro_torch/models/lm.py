@@ -33,10 +33,16 @@ the recurrent states in the tree.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
+from ..distributed.sharding import on_shards
 from ..kernels import resolve_device
 from ..serve.paged_kv import PagedKVCache
 from .blocks import ATTN_KINDS, Block, block_init_cache, layout
@@ -151,16 +157,65 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     return LM(cfg, seed, device)
 
 
+# ---------------------------------------------------------------------------
+# remat policies
+# ---------------------------------------------------------------------------
+
+
+REMAT_POLICIES = ("full", "dots", "block_outs")
+
+_ACTIVE_REMAT_POLICY = ["full"]
+
+#: the products whose outputs the "dots" policy saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def set_remat_policy(name: str) -> None:
+    """What a checkpointed block keeps for its backward pass (the
+    reference's policies): "full" keeps its input and recomputes the rest;
+    "dots" keeps every matmul output (selective activation checkpointing);
+    "block_outs" keeps an attention block's post-attention and post-MLP
+    residual outputs (the block is checkpointed as two halves) and
+    recomputes the rest locally.  The hybrid's shared attention block stays
+    "full", as in the reference."""
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {name!r} is not one of "
+                         f"{REMAT_POLICIES}")
+    _ACTIVE_REMAT_POLICY[0] = name
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(block: Block, x: torch.Tensor, remat: bool, shared: bool):
+    """``block(x)`` under the active remat policy (``shared``: the
+    hybrid's shared block, always "full")."""
+    policy = "full" if shared else _ACTIVE_REMAT_POLICY[0]
+    if policy == "full" or not (remat and torch.is_grad_enabled()):
+        return remat_call(block, x, remat=remat)
+    ckpt = functools.partial(torch.utils.checkpoint.checkpoint,
+                             use_reentrant=False)
+    if policy == "dots":
+        return ckpt(block, x, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    if block.kind in ATTN_KINDS:
+        return ckpt(block.mlp_half, ckpt(block.attn_half, x))
+    return ckpt(block, x)
+
+
 def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
                remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (b, s) -> (logits (b, s, v) f32, aux loss f32).  With
-    ``remat`` every block application is checkpointed (the reference's
-    "full" policy); the aux loss sums the MoE blocks' load-balancing
-    terms."""
+    ``remat`` every block application is checkpointed under the active
+    policy (:func:`set_remat_policy`); the aux loss sums the MoE blocks'
+    load-balancing terms."""
     x = embed(params.embed, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for app in params.apps:
-        x, a = remat_call(params.block(app), x, remat=remat)
+        x, a = _remat_block(params.block(app), x, remat, app.block is None)
         aux = aux + a
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     return unembed(params.embed, x), aux
@@ -169,9 +224,18 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
 def next_token_nll(logits: torch.Tensor, targets: torch.Tensor
                    ) -> torch.Tensor:
     """The mean next-token cross entropy of logits (b, s, v) against
-    targets (b, s)."""
+    targets (b, s).  DTensor logits: each rank takes its batch rows, the
+    vocab made whole (``distributed.sharding.on_shards``)."""
+    if isinstance(logits, DTensor):
+        nll = on_shards(_nll, ((logits, ("b", None, None)),
+                               (targets, ("b", None))), ("b", None))
+        return nll.mean()
+    return _nll(logits, targets).mean()
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+    return -logp.gather(-1, targets.long()[..., None])[..., 0]
 
 
 def lm_loss(params: LM, tokens: torch.Tensor, cfg: ModelConfig,

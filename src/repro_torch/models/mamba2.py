@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import on_shards, pad, shard
 from .layers import _const, _dtype, _init, _zeros
 
 CONV_K = 4
@@ -65,7 +66,7 @@ def _causal_conv(p: Mamba2, xbc: torch.Tensor, conv_state=None):
         out = torch.einsum("bkc,kc->bc", window, p.conv_w) + p.conv_b
         return F.silu(out)[:, None], window[:, 1:]
     b, s, ch = xbc.shape
-    xp = F.pad(xbc, (0, 0, CONV_K - 1, 0))
+    xp = pad(xbc, (0, 0, CONV_K - 1, 0))
     out = xp[:, 0:s] * p.conv_w[0]
     for i in range(1, CONV_K):
         out = out + xp[:, i:i + s] * p.conv_w[i]
@@ -130,21 +131,28 @@ def mamba2_block(p: Mamba2, x: torch.Tensor, cfg) -> torch.Tensor:
     """Prefill path.  x: (b, s, d) -> (b, s, d); the sequence is padded to
     whole chunks and cut back."""
     b, s0, d = x.shape
-    pad = (-s0) % min(cfg.ssm_chunk, max(s0, 1))
-    xp = F.pad(x, (0, 0, 0, pad)) if pad else x
+    n_pad = (-s0) % min(cfg.ssm_chunk, max(s0, 1))
+    xp = pad(x, (0, 0, 0, n_pad)) if n_pad else x
     s = xp.shape[1]
     d_in, nh, n = dims(cfg)
-    z, xbc, dt_raw = _split_proj(p, xp, cfg)
+    # the projection's parts as whole rows (its output is cut in three
+    # along the model-sharded dim)
+    z, xbc, dt_raw = (shard(t, "batch", "seq", None)
+                      for t in _split_proj(p, xp, cfg))
     xbc, _ = _causal_conv(p, xbc)
     xs = xbc[..., :d_in].reshape(b, s, nh, cfg.ssm_head_dim)
     B = xbc[..., d_in:d_in + n]
     C = xbc[..., d_in + n:]
     dtv = F.softplus(dt_raw.float() + p.dt_bias)
-    y = _ssd_chunked(xs, dtv, B, C, p.a_log, cfg.ssm_chunk)
-    if pad:
+    y = on_shards(lambda *a: _ssd_chunked(*a, cfg.ssm_chunk),
+                  ((xs, ("b", None, "h", None)), (dtv, ("b", None, "h")),
+                   (B, ("b", None, None)), (C, ("b", None, None)),
+                   (p.a_log, ("h",))), ("b", None, "h", None))
+    if n_pad:
         y, xs, z = y[:, :s0], xs[:, :s0], z[:, :s0]
     y = y + xs.float() * p.d_skip[None, None, :, None]
-    return _gated_norm_out(p, y.reshape(b, s0, d_in), z, x.dtype)
+    return shard(_gated_norm_out(p, y.reshape(b, s0, d_in), z, x.dtype),
+                 "batch", "seq", None)
 
 
 def mamba2_init_state(cfg, batch: int, device) -> dict:

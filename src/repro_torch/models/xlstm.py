@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import on_shards, shard
 from .layers import _const, _dtype, _init
 
 
@@ -46,9 +47,12 @@ def _mlstm_qkv(p: MLSTM, x: torch.Tensor, cfg):
     b, s, d = x.shape
     nh = cfg.n_heads
     hd = d // nh
-    q = (x @ p.mq).reshape(b, s, nh, hd)
-    k = (x @ p.mk).reshape(b, s, nh, hd)
-    v = (x @ p.mv).reshape(b, s, nh, hd)
+    q = shard((x @ p.mq).reshape(b, s, nh, hd), "batch", "seq", "heads",
+              None)
+    k = shard((x @ p.mk).reshape(b, s, nh, hd), "batch", "seq", "heads",
+              None)
+    v = shard((x @ p.mv).reshape(b, s, nh, hd), "batch", "seq", "heads",
+              None)
     logi = x.float() @ p.w_i                                  # (b, s, nh)
     logf = -F.softplus(-(x.float() @ p.w_f + p.f_bias))      # log sigmoid
     return q, k, v, logi, logf
@@ -59,17 +63,34 @@ MLSTM_CHUNK_THRESHOLD = 2048
 MLSTM_CHUNK = 512
 
 
+#: the parallel region's labels: batch and heads
+_QKV = ((("b", None, "h", None),) * 3) + ((("b", None, "h"),) * 2)
+
+
+def _on_heads(fn, q, k, v, logi, logf):
+    """``fn(q, k, v, logi, logf) -> y (b, s, nh, hd)``, each rank on its
+    batch and head shards (``distributed.sharding.on_shards``)."""
+    return on_shards(fn, tuple(zip((q, k, v, logi, logf), _QKV)),
+                     ("b", None, "h", None))
+
+
 def mlstm_block_chunked(p: MLSTM, x: torch.Tensor, cfg,
                         chunk: int = MLSTM_CHUNK) -> torch.Tensor:
     """Chunkwise-parallel mLSTM: O(s * chunk) memory instead of O(s^2).
     A within-chunk quadratic D-matrix plus the inter-chunk (C, n, M)
     recurrent state with running max-stabilizers."""
     b, s0, d = x.shape
-    nh = cfg.n_heads
-    hd = d // nh
+    y = _on_heads(lambda *a: _mlstm_chunks(*a, chunk), *_mlstm_qkv(p, x, cfg))
+    return shard(_norm(p, y.reshape(b, s0, d), x.dtype) @ p.m_out,
+                 "batch", "seq", None)
+
+
+def _mlstm_chunks(q, k, v, logi, logf, chunk: int) -> torch.Tensor:
+    """The chunkwise form's core: (b, s, nh, hd) q, k, v and (b, s, nh)
+    gates -> y (b, s, nh, hd) float32."""
+    b, s0, nh, hd = q.shape
     pad = (-s0) % chunk
-    q, k, v, logi, logf = _mlstm_qkv(p, x, cfg)
-    dev = x.device
+    dev = q.device
     if pad:
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
         logi = torch.cat([logi, torch.full((b, pad, nh), -1e30,
@@ -116,8 +137,7 @@ def mlstm_block_chunked(p: MLSTM, x: torch.Tensor, cfg,
              + torch.einsum("bjhd,bjhe->bhde", wj[..., None] * ki, vi))
         n = carry_scale[..., None] * n + torch.einsum("bjh,bjhd->bhd", wj, ki)
         M = M_new
-    y = torch.stack(ys, 1).reshape(b, s, d)[:, :s0]
-    return _norm(p, y, x.dtype) @ p.m_out
+    return torch.stack(ys, 1).reshape(b, s, nh, hd)[:, :s0]
 
 
 def mlstm_block(p: MLSTM, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -125,13 +145,19 @@ def mlstm_block(p: MLSTM, x: torch.Tensor, cfg) -> torch.Tensor:
     b, s, d = x.shape
     if s >= MLSTM_CHUNK_THRESHOLD:
         return mlstm_block_chunked(p, x, cfg)
-    nh = cfg.n_heads
-    hd = d // nh
-    q, k, v, logi, logf = _mlstm_qkv(p, x, cfg)
+    y = _on_heads(_mlstm_parallel, *_mlstm_qkv(p, x, cfg))
+    return shard(_norm(p, y.reshape(b, s, d), x.dtype) @ p.m_out,
+                 "batch", "seq", None)
+
+
+def _mlstm_parallel(q, k, v, logi, logf) -> torch.Tensor:
+    """The parallel form's core: (b, s, nh, hd) q, k, v and (b, s, nh)
+    gates -> y (b, s, nh, hd) float32."""
+    s, hd = q.shape[1], q.shape[3]
     cumf = torch.cumsum(logf, 1)                              # (b, s, nh)
     # log D_ij = cumf_i - cumf_j + logi_j  (i >= j)
     dmat = cumf[:, :, None, :] - cumf[:, None, :, :] + logi[:, None, :, :]
-    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
     dmat = torch.where(mask[None, :, :, None], dmat, -torch.inf)
     m = dmat.amax(2, keepdim=True)                            # row stabilizer
     dexp = torch.exp(dmat - m)
@@ -139,8 +165,7 @@ def mlstm_block(p: MLSTM, x: torch.Tensor, cfg) -> torch.Tensor:
                           k.float()) * hd ** -0.5
     w = scores * dexp
     norm = torch.maximum(w.sum(2, keepdim=True).abs(), torch.exp(-m))
-    y = torch.einsum("bijh,bjhd->bihd", w / norm, v.float())
-    return _norm(p, y.reshape(b, s, d), x.dtype) @ p.m_out
+    return torch.einsum("bijh,bjhd->bihd", w / norm, v.float())
 
 
 def mlstm_init_state(cfg, batch: int, device) -> dict:
@@ -154,23 +179,33 @@ def mlstm_init_state(cfg, batch: int, device) -> dict:
 def mlstm_decode(p: MLSTM, x: torch.Tensor, cfg, state: dict):
     """One-token recurrence; x: (b, 1, d).  Returns (y, new state)."""
     b, _, d = x.shape
-    nh = cfg.n_heads
-    hd = d // nh
-    q, k, v, logi, logf = _mlstm_qkv(p, x, cfg)
+    hs = (("b", "h", None, None), ("b", "h", None), ("b", "h"))
+    y, C, n, m = on_shards(
+        _mlstm_step,
+        tuple(zip(_mlstm_qkv(p, x, cfg), _QKV)) + tuple(
+            zip((state["C"], state["n"], state["m"]), hs)),
+        (("b", "h", None),) + hs)
+    return _norm(p, y.reshape(b, 1, d), x.dtype) @ p.m_out, \
+        {"C": C, "n": n, "m": m}
+
+
+def _mlstm_step(q, k, v, logi, logf, C, n, m):
+    """The recurrence's core: one token's (b, 1, nh, hd) q, k, v and
+    (b, 1, nh) gates against the state -> (y (b, nh, hd), C, n, m)."""
+    hd = q.shape[-1]
     q, k, v = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
     logi, logf = logi[:, 0], logf[:, 0]                       # (b, nh)
-    m_new = torch.maximum(logf + state["m"], logi)
-    a = torch.exp(logf + state["m"] - m_new)
+    m_new = torch.maximum(logf + m, logi)
+    a = torch.exp(logf + m - m_new)
     bgt = torch.exp(logi - m_new)
-    C = state["C"] * a[..., None, None] + \
+    C = C * a[..., None, None] + \
         bgt[..., None, None] * (k[..., :, None] * v[..., None, :])
-    n = state["n"] * a[..., None] + bgt[..., None] * k
+    n = n * a[..., None] + bgt[..., None] * k
     qf = q * hd ** -0.5
     num = torch.einsum("bhk,bhkv->bhv", qf, C)
     den = torch.maximum(torch.einsum("bhk,bhk->bh", qf, n).abs(),
                         torch.exp(-m_new))
-    y = (num / den[..., None]).reshape(b, 1, d)
-    return _norm(p, y, x.dtype) @ p.m_out, {"C": C, "n": n, "m": m_new}
+    return num / den[..., None], C, n, m_new
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +256,7 @@ def slstm_block(p: SLSTM, x: torch.Tensor, cfg) -> torch.Tensor:
     for t in range(s):
         state = _slstm_step(p, state, xf[:, t])
         hs.append(state["h"])
-    return _norm(p, torch.stack(hs, 1), x.dtype)
+    return shard(_norm(p, torch.stack(hs, 1), x.dtype), "batch", "seq", None)
 
 
 def slstm_decode(p: SLSTM, x: torch.Tensor, cfg, state: dict):

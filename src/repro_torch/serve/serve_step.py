@@ -15,7 +15,14 @@ from typing import Any
 
 import torch
 
+from ..distributed.sharding import shard
 from ..models import ModelConfig, encdec_decode, lm_decode, lm_prefill
+
+
+def _whole_vocab(last: torch.Tensor) -> torch.Tensor:
+    """Last-position logits (b, v) with the vocab whole on every rank
+    (sampling reads the whole row; a plain tensor passes as it is)."""
+    return shard(last, "batch", None)
 
 
 def prefill_step(params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -31,11 +38,12 @@ def serve_step(params, token: torch.Tensor, caches,
     """One decode step; returns (next token ids (b, 1) int64, caches,
     logits)."""
     logits, caches = lm_decode(params, token, caches, cache_len, cfg)
+    last = _whole_vocab(logits[:, -1])
     if temperature > 0.0 and generator is not None:
-        probs = torch.softmax(logits[:, -1] / temperature, dim=-1)
+        probs = torch.softmax(last / temperature, dim=-1)
         nxt = torch.multinomial(probs, 1, generator=generator)
     else:
-        nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        nxt = torch.argmax(last, dim=-1)[:, None]
     return nxt, caches, logits
 
 
@@ -45,7 +53,8 @@ def serve_step_encdec(params, token: torch.Tensor, memory: torch.Tensor,
     ids (b, 1) int64, caches, logits)."""
     logits, caches = encdec_decode(params, token, memory, caches, cache_len,
                                    cfg)
-    return torch.argmax(logits[:, -1], dim=-1)[:, None], caches, logits
+    nxt = torch.argmax(_whole_vocab(logits[:, -1]), dim=-1)[:, None]
+    return nxt, caches, logits
 
 
 @dataclasses.dataclass

@@ -10,8 +10,11 @@ into place, so a crash mid-save never corrupts the newest checkpoint;
 ``latest_step`` skips incomplete or corrupt manifests; the newest ``keep``
 saves are kept.  A restore writes into the model and optimizer state it is
 given, in place (``device=`` moves them first), so a rollback leaves them
-exactly as the checkpoint holds them.  Elastic resharding onto another
-mesh is not ported (ROADMAP.md Queue 1 item 14).
+exactly as the checkpoint holds them.  Elastic resharding: ``restore(...,
+shardings=(param shardings, opt shardings))`` loads each array as a
+DTensor on its ``distributed.sharding.NamedSharding`` (a checkpoint saved
+on one mesh reloads onto any other); a DTensor is saved whole
+(``full_tensor``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ import threading
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from ..distributed.sharding import distribute
 from ..kernels import resolve_device
 
 def _flat(tree, prefix: str = "") -> dict[str, torch.Tensor]:
@@ -50,7 +55,10 @@ def _to_numpy(flat: dict) -> dict[str, np.ndarray]:
         if isinstance(t, np.ndarray):
             out[key] = t
             continue
-        t = t.detach().cpu()
+        t = t.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        t = t.cpu()
         if t.dtype == torch.bfloat16:
             out[key + "__bf16"] = t.view(torch.int16).numpy().view(np.uint16)
         else:
@@ -62,7 +70,8 @@ def _snapshot(tree) -> dict[str, np.ndarray]:
     """Host copies of every leaf: never the live tensors (``Tensor.cpu``
     returns a CPU tensor itself, which the next in-place step would
     change under the writer)."""
-    return _to_numpy({k: t.detach().to("cpu", copy=True)
+    return _to_numpy({k: (t.detach().full_tensor() if isinstance(t, DTensor)
+                          else t.detach()).to("cpu", copy=True)
                       for k, t in _flat(tree).items()})
 
 
@@ -131,6 +140,40 @@ def _leaf(data, key: str) -> torch.Tensor:
     return torch.from_numpy(np.array(data[key]))
 
 
+def _load_sharded(npz_path: str, tree, shardings) -> None:
+    """Every leaf of ``tree`` with a sharding in ``shardings`` (same
+    keys) replaced by a DTensor of the npz's array on it: a model's
+    parameters re-registered (``requires_grad`` kept), a dict's entries
+    set; leaves without one loaded in place."""
+    with np.load(npz_path) as data:
+        if isinstance(tree, nn.Module):
+            with torch.no_grad():
+                for key, t in tree.state_dict(keep_vars=True).items():
+                    sh = shardings.get(key)
+                    if sh is None:
+                        t.copy_(_leaf(data, key))
+                        continue
+                    mod, _, attr = key.rpartition(".")
+                    owner = tree.get_submodule(mod) if mod else tree
+                    arr = _leaf(data, key).to(sh.mesh.device_type)
+                    owner.register_parameter(attr, nn.Parameter(
+                        distribute(arr, sh), requires_grad=t.requires_grad))
+            return
+
+        def walk(d: dict, sh: dict, prefix: str) -> None:
+            for k, v in d.items():
+                if isinstance(v, dict):
+                    walk(v, (sh or {}).get(k) or {}, f"{prefix}{k}/")
+                    continue
+                arr = _leaf(data, prefix + k)
+                s = (sh or {}).get(k)
+                if s is None:
+                    v.copy_(arr)
+                else:
+                    d[k] = distribute(arr.to(s.mesh.device_type), s)
+        walk(tree, shardings, "")
+
+
 def _load_into(npz_path: str, tree, device) -> None:
     """Every leaf of ``tree`` (a model or a nested dict of tensors) from
     the npz, written in place; a dict's leaves are replaced by tensors on
@@ -159,13 +202,22 @@ def _load_into(npz_path: str, tree, device) -> None:
 
 
 def restore(ckpt_dir: str, step: int, params_like, opt_like,
-            device: str | torch.device | None = None):
+            device: str | torch.device | None = None, shardings=None):
     """Load step ``step`` into ``params_like`` (a model) and ``opt_like``
-    in place, on ``device`` if given (else where they are).  Returns
-    (params, opt, manifest)."""
+    in place, on ``device`` if given (else where they are).
+    ``shardings`` = (param shardings, opt shardings), each
+    ``{name: NamedSharding}`` (the opt's ``{"mu": {...}, "nu": {...}}``)
+    or None: the leaves named load as DTensors on them (elastic reload
+    onto another mesh).  Returns (params, opt, manifest)."""
     d = os.path.join(ckpt_dir, f"step_{int(step):010d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    _load_into(os.path.join(d, "params.npz"), params_like, device)
-    _load_into(os.path.join(d, "opt.npz"), opt_like, device)
+    p_sh, o_sh = shardings if shardings is not None else (None, None)
+    for name, tree, sh in (("params", params_like, p_sh),
+                           ("opt", opt_like, o_sh)):
+        path = os.path.join(d, f"{name}.npz")
+        if sh is None:
+            _load_into(path, tree, device)
+        else:
+            _load_sharded(path, tree, sh)
     return params_like, opt_like, manifest
